@@ -9,7 +9,8 @@ are built for Hopper, ``sm_90a``)::
 Phases, one line each (any failure raises and the script exits nonzero):
 
 1. Device: the card's name and its ``nvidia-smi`` name and power limit.
-2. Build: the two crop-raster CUDA kernels from ``deepim_tpu_torch/raster/csrc``.
+2. Build: the three raster CUDA kernels from ``deepim_tpu_torch/raster/csrc``
+   (one ``nvcc`` per source, all started together).
 3. Kernels against their plain PyTorch versions on the binned inputs the
    main path gives them, at 480x640 and 240x320 with B=128: the cols
    kernel on the headline's 1,280 faces; the sorted kernel on the cols
@@ -29,6 +30,27 @@ Phases, one line each (any failure raises and the script exits nonzero):
    sub-1,024-face meshes (the sorted kernel's crop route).  Launches are
    counted from zero for each of the two runs; then poses/s of the
    headline pipelined over 8 batches and the serial median of 5.
+6. The top-k kernel against its plain version at B=128, 480x640 and
+   240x320: on the headline crops binned at 512 faces per tile, and on a
+   full-frame shared-mesh ``render_batch`` pack (whose tiles overflow the
+   cap); bit for bit, timed, with the number of tiles at the cap.
+7. Scene synthesis, this slice's main path: ``synthetic_occlusion_batch``
+   at B=128, 480x640, LINEMOD K, three runs with launches counted from
+   zero for each: untextured headline classes with 2 distractors (3,840
+   scene faces: the sorted kernel; the target-only depth: the cols
+   kernel), the textured headline classes (the deferred pass; its peak
+   memory), and classes padded to 4,096 faces with 3 distractors (16,384
+   faces: two cols chunks z-merged).  Samples/s of each.  Then every
+   kernel call of each run against its plain version on the packed and
+   binned inputs the run gave it (the 3,840-face scene, both chunks, the
+   target-only depth), bit for bit.
+8. The top-k route through ``render_batch``, ``render_batch_tri`` and
+   ``render_batch_textured`` (``binning="topk"``, B=128, 480x640): each
+   launches the top-k kernel and warns as the reference does.
+9. Card against CPU at B=8, float32: ``render_scene`` with each synthesis
+   run's assets and slot count, the chunked one z-merging two cols chunks
+   (raster tolerance), ``refine_poses`` on the textured headline assets
+   (atol 1e-3).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -37,12 +59,14 @@ next to it, the script exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
 import statistics
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -51,6 +75,8 @@ ROOT = Path(__file__).resolve().parent
 PARITY_B = 8
 PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
 RGB_ATOL, DEPTH_ATOL = 2e-2, 1e-3  # the repo's raster tolerance, printed beside
+RASTER_FRAC = 0.002  # card-vs-CPU renders: at most this share of elements off
+TOPK_CAP = 512  # the reference's default max_faces_per_tile
 
 
 def log(phase: str, **fields) -> None:
@@ -88,20 +114,31 @@ def time_in_turns(kernel, plain, reps_kernel=20, reps_plain=3):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def compare(name, kern, plain, args, **fields):
-    """Kernel against its plain version on the same inputs, timed.  The two
-    evaluate every plane with the same rounded operations, so they must
-    agree bit for bit (max_abs_err 0)."""
+def peak_memory(fn):
+    """``fn()`` and the device memory it held at its peak above what was
+    allocated before it, in MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def compare(name, kern, plain, args, min_covered=0.05, reps=(20, 3), **fields):
+    """Kernel against its plain version on the same inputs, timed (``reps``
+    calls of each per turn).  The two evaluate every plane with the same
+    rounded operations, so they must agree bit for bit (max_abs_err 0)."""
     out_k = kern(*args)
     torch.cuda.synchronize()
     out_p = plain(*args)
     frac_rgb, frac_d, err = mismatch(out_k, out_p)
-    ms, plain_ms = time_in_turns(lambda: kern(*args), lambda: plain(*args))
+    ms, plain_ms = time_in_turns(lambda: kern(*args), lambda: plain(*args), *reps)
     covered = (out_p[1] > 0).float().mean().item()
     log("kernels", kernel=name, **fields, batch=args[0].shape[0], faces=args[0].shape[1],
         rgb_mismatch=frac_rgb, depth_mismatch=frac_d, max_abs_err=err,
         covered=covered, ms=ms, plain_ms=plain_ms)
-    if err != 0.0 or covered < 0.05:
+    if err != 0.0 or covered < min_covered:
         raise AssertionError(f"{name} {fields} disagrees with its plain version")
     return {**fields, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
@@ -176,7 +213,7 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     frac_rgb, frac_d, err = mismatch([t.cpu() for t in out_k], out_p)
     log("kernels", case="cols_overflow_fallback", size=f"{h}x{w}", launches=counts,
         rgb_mismatch=frac_rgb, depth_mismatch=frac_d, max_abs_err=err)
-    if counts != {"raster_cols": 0, "raster_sorted": 1, "cols_fallback": 1}:
+    if counts != {"raster_cols": 0, "raster_sorted": 1, "raster_topk": 0, "cols_fallback": 1}:
         raise AssertionError(f"overflow mesh did not take the sorted fallback: {counts}")
     if err != 0.0:
         raise AssertionError("sorted fallback disagrees with its plain version")
@@ -185,7 +222,7 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     return record
 
 
-def phase_parity(model_f32, assets, obs, init, ks, cls):
+def phase_parity(model_f32, assets, obs, init, ks, cls, **fields):
     """refine_poses with the kernels (card) against the plain versions (CPU)."""
     from deepim_tpu_torch import headline as hl
 
@@ -200,10 +237,242 @@ def phase_parity(model_f32, assets, obs, init, ks, cls):
     t_cpu = time.perf_counter() - t0
     diff = (traj_k - traj_p).abs().max().item()
     moved = (traj_k[-1] - traj_k[0]).abs().max().item()
-    log("parity", batch=PARITY_B, max_pose_diff=diff, atol=PARITY_ATOL,
+    log("parity", **fields, batch=PARITY_B, max_pose_diff=diff, atol=PARITY_ATOL,
         moved=moved, card_s=t_card, cpu_s=t_cpu)
     if not diff <= PARITY_ATOL or not moved > 1e-3:
         raise AssertionError("refine_poses on the card disagrees with the CPU path")
+
+
+def _shared_sphere(dev):
+    """The headline's 1,280-face sphere as one vertex+faces mesh on ``dev``."""
+    from deepim_tpu_torch import headline as hl
+
+    m = hl.headline_meshes()[0][1]
+    return [torch.from_numpy(a).to(dev) for a in (m.vertices, m.faces, m.colors, m.normals)]
+
+
+def phase_topk_kernel(dev, assets, init, ks, cls, rc):
+    """The top-k kernel against its plain version on two kinds of input:
+    the headline crops (crop intrinsics, back-face culling) binned at
+    TOPK_CAP faces per tile, and one full-frame shared-mesh render_batch
+    pack (no culling: the tiles around the sphere overflow the cap)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.ops.zoom import compute_zoom_box, zoom_intrinsics
+    from deepim_tpu_torch.refine import gather_class
+
+    ab = gather_class(assets, cls)
+    b = init.shape[0]
+    shared = [t.expand(b, *t.shape) for t in _shared_sphere(dev)]
+    records = []
+    for size in (hl.SIZE, hl.COARSE):
+        h, w = size
+        kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, size))
+        crop = rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm, init, kz,
+                                  rc.FLAT_LIGHTING, 0.01, ab.cull_dir)
+        k_full = ks.clone()
+        k_full[:, :2] *= h / hl.SIZE[0]  # the camera at this image size
+        full = rc.pack_face_params(*shared, init, k_full, rc.FLAT_LIGHTING, 0.01)
+        for case, (params, bbox, ok), min_covered in (
+                ("crop", crop, 0.05), ("full_frame_render_batch", full, 1e-3)):
+            lists, counts = rc.bin_faces_topk(bbox, ok, size, TOPK_CAP)
+            records.append(compare(
+                "raster_topk", rc.raster_topk, rc.raster_topk_ref, (params, lists, counts, h, w),
+                min_covered=min_covered, case=case, size=f"{h}x{w}", tiles=counts.numel(),
+                tiles_at_cap=int((counts == lists.shape[2]).sum()),
+                max_count=int(counts.max())))
+    return records
+
+
+def synthesis_assets(dev, assets, tex_assets):
+    """The three synthesis runs, (name, assets, distractors, expected
+    launches): the headline assets, their textured variant, and classes
+    padded to 4,096 faces."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.raster.mesh import cylinder_mesh, torus_mesh
+    from deepim_tpu_torch.refine import build_assets
+
+    one_each = {"raster_cols": 1, "raster_sorted": 1, "raster_topk": 0, "cols_fallback": 0}
+    meshes, syms = hl.headline_meshes()
+    # Classes padded to 4,096 faces: the torus at 64x32 segments (4,096
+    # faces) and the cylinder with 4 rings (its side faces ~3 cm, under the
+    # cols kernel's span, so no chunk overflows into the sorted fallback).
+    dense = [meshes[0], meshes[1], cylinder_mesh(rows=4), torus_mesh(n_major=64, n_minor=32)]
+    return [
+        ("untextured", assets, 2, one_each),
+        ("textured", tex_assets, 2, one_each),
+        # 4 slots x 4,096 = 16,384 faces: chunks of 12,288 and 4,096, each
+        # on the cols kernel, z-merged; the target-only depth: cols again.
+        ("chunked", build_assets(dense, sym_transforms=syms, num_points=300, device=dev), 3,
+         {"raster_cols": 3, "raster_sorted": 0, "raster_topk": 0, "cols_fallback": 0}),
+    ]
+
+
+@contextlib.contextmanager
+def captured_inputs(rc):
+    """Record the inputs of every raster_cols/raster_sorted call made inside
+    the block as (name, args); the calls themselves run as usual."""
+    calls = []
+    saved = {n: getattr(rc, n) for n in ("raster_cols", "raster_sorted")}
+
+    def recording(name, fn):
+        def wrapped(*args):
+            calls.append((name, args))
+            return fn(*args)
+        return wrapped
+
+    for n, fn in saved.items():
+        setattr(rc, n, recording(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(rc, n, fn)
+
+
+def phase_synthesis(dev, card, rc, runs, record):
+    """synthetic_occlusion_batch at full width, B=128, 480x640, LINEMOD K:
+    each run's launches counted from zero, then samples/s over 3 calls;
+    then each kernel call of the run against its plain version on the
+    packed and binned inputs the run gave it (appended to ``record``)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data import synthetic_occlusion_batch
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+
+    k = make_intrinsics(*hl.LINEMOD_K, device=dev)
+    counts = {}
+    for name, assets, nd, expect in runs:
+        def run():
+            g = torch.Generator(device=dev).manual_seed(hl.SEED)
+            return synthetic_occlusion_batch(g, assets, hl.B, k, hl.SIZE, num_distractors=nd)
+
+        with captured_inputs(rc) as calls:
+            run()  # warm; the same draws as every later call
+        rc.reset_launches()
+        out, peak_mib = peak_memory(run)
+        counts[name] = dict(rc.LAUNCHES)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        vis = out["visible_frac"]
+        log("synthesis", run=name, batch=hl.B, size=f"{hl.SIZE[0]}x{hl.SIZE[1]}",
+            scene_faces=(1 + nd) * assets.tri_pos.shape[2], launches=counts[name],
+            visible_frac_mean=vis.mean().item(), scene_covered=(out["obs_depth"] > 0)
+            .float().mean().item(), peak_mib=peak_mib,
+            samples_per_s_median3=hl.B / statistics.median(times),
+            call_ms=[t * 1e3 for t in times], card=repr(card))
+        if counts[name] != expect:
+            raise AssertionError(f"synthesis {name}: launches {counts[name]}, expected {expect}")
+        for key in ("obs_rgb", "obs_depth", "pose_src", "pose_tgt", "visible_frac"):
+            if not torch.isfinite(out[key].float()).all():
+                raise AssertionError(f"synthesis {name}: {key} is not finite")
+        if out["obs_rgb"].shape != (hl.B, *hl.SIZE, 3) or not vis.max().item() > 0:
+            raise AssertionError(f"synthesis {name}: wrong shape or nothing visible")
+        del out
+        if len(calls) != counts[name]["raster_cols"] + counts[name]["raster_sorted"]:
+            raise AssertionError(f"synthesis {name}: {len(calls)} kernel calls recorded")
+        # The scene's sorted call or cols chunks in order, then the target's
+        # depth; timed with fewer calls, the plain versions take seconds.
+        for i, (kname, args) in enumerate(calls):
+            plain = rc.raster_cols_ref if kname == "raster_cols" else rc.raster_sorted_ref
+            record[kname].append(compare(
+                kname, getattr(rc, kname), plain, args, min_covered=1e-3, reps=(5, 1),
+                case=f"synthesis_{name}", call=i, size=f"{hl.SIZE[0]}x{hl.SIZE[1]}"))
+        del calls
+    return counts
+
+
+def phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls):
+    """binning="topk" through the three entry points at B=128, 480x640
+    (full frame, LINEMOD K): each must launch the top-k kernel and warn;
+    then the deferred texture pass's peak memory, chunked and not."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.raster.textured import render_batch_textured
+    from deepim_tpu_torch.refine import gather_class
+
+    ab, abt = gather_class(assets, cls), gather_class(tex_assets, cls)
+    sphere = _shared_sphere(dev)
+
+    def textured(binning, chunk=16):
+        return render_batch_textured(abt.tri_pos, abt.tri_uv, abt.tri_nrm, init, ks, hl.SIZE,
+                                     abt.textures, tex_idx=abt.tex_idx, binning=binning,
+                                     cull_dir=abt.cull_dir, deferred_chunk=chunk)
+
+    calls = {
+        "render_batch": lambda: rc.render_batch(*sphere, init, ks, hl.SIZE, binning="topk"),
+        "render_batch_tri": lambda: rc.render_batch_tri(
+            ab.tri_pos, ab.tri_col, ab.tri_nrm, init, ks, hl.SIZE, binning="topk",
+            cull_dir=ab.cull_dir),
+        "render_batch_textured": lambda: textured("topk"),
+    }
+    counts = {}
+    for entry, fn in calls.items():
+        torch.cuda.synchronize()
+        rc.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rgb, depth = fn()
+        torch.cuda.synchronize()
+        counts[f"topk_{entry}"] = dict(rc.LAUNCHES)
+        warned = any(issubclass(w.category, RuntimeWarning) and "DROPS" in str(w.message)
+                     for w in caught)
+        covered = (depth > 0).float().mean().item()
+        finite = bool(torch.isfinite(rgb).all() and torch.isfinite(depth).all())
+        log("topk_route", entry=entry, launches=counts[f"topk_{entry}"], warned=warned,
+            covered=covered, finite=finite)
+        if rc.LAUNCHES["raster_topk"] < 1 or not warned or not finite or covered <= 0:
+            raise AssertionError(f"{entry}(binning='topk') missed the top-k kernel or its warning")
+    peaks = {}
+    for name, fn in (("raster_only", lambda: rc.render_batch_tri(
+            abt.tri_pos, abt.tri_col, abt.tri_nrm, init, ks, hl.SIZE, cull_dir=abt.cull_dir)),
+            ("textured_chunk16", lambda: textured("auto")),
+            ("textured_unchunked", lambda: textured("auto", 0))):
+        peaks[name] = peak_memory(fn)[1]
+    log("deferred_pass", batch=hl.B, size=f"{hl.SIZE[0]}x{hl.SIZE[1]}", peak_mib=peaks)
+    return counts
+
+
+def phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls):
+    """render_scene on the card against the same call on the CPU, B=8,
+    float32, for each synthesis run's assets and slot count (the chunked
+    run: two cols chunks z-merged on each side); then textured
+    refine_poses."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data.synthetic import _draw_scene
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.raster.raster_ref import Lighting
+    from deepim_tpu_torch.refine import render_scene
+
+    k = make_intrinsics(*hl.LINEMOD_K, device=dev)
+    tex_assets = None
+    for name, a, nd, _ in runs:
+        tex_assets = a if a.textured else tex_assets
+        s = _draw_scene(torch.Generator(device=dev).manual_seed(hl.SEED + 1), a.num_classes,
+                        PARITY_B, k, hl.SIZE, num_distractors=nd)
+        args = (s["scene_cls"], s["scene_poses"],
+                torch.ones((PARITY_B, 1 + nd), dtype=torch.bool, device=dev),
+                k.expand(PARITY_B, 3, 3).contiguous())
+        rc.reset_launches()
+        out_k = render_scene(a, *args, hl.SIZE, lighting=s["lighting"])
+        torch.cuda.synchronize()
+        launches = dict(rc.LAUNCHES)
+        t0 = time.perf_counter()
+        out_p = render_scene(a.to("cpu"), *(t.cpu() for t in args), hl.SIZE,
+                             lighting=Lighting(*(x.cpu() for x in s["lighting"])))
+        t_cpu = time.perf_counter() - t0
+        frac_rgb, frac_d, err = mismatch([t.cpu() for t in out_k], out_p)
+        covered = (out_p[1] > 0).float().mean().item()
+        log("parity", case=f"render_scene_{name}", batch=PARITY_B,
+            scene_faces=(1 + nd) * a.tri_pos.shape[2], launches=launches,
+            rgb_mismatch=frac_rgb, depth_mismatch=frac_d, limit=RASTER_FRAC,
+            max_abs_err=err, covered=covered, cpu_s=t_cpu)
+        if frac_rgb > RASTER_FRAC or frac_d > RASTER_FRAC or not covered > 0:
+            raise AssertionError(f"render_scene ({name}) on the card disagrees with the CPU")
+        if name == "chunked" and launches["raster_cols"] != 2:
+            raise AssertionError(f"the chunked scene did not render in two cols chunks: {launches}")
+    phase_parity(model_f32, tex_assets, obs, init, ks, cls, case="refine_poses_textured")
 
 
 def main() -> int:
@@ -246,7 +515,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-5 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-9 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -309,26 +578,37 @@ def run_phases(dev, card: str) -> list[dict]:
         serial_ms=[s * 1e3 for s in serial], batch=hl.B, iters=hl.K_ITERS,
         coarse_iters=hl.COARSE_ITERS, dtype="bf16", card=repr(card))
 
+    # This slice: the top-k kernel, scene synthesis, the top-k route, and
+    # card-against-CPU parity of the scene render and textured refinement.
+    record["raster_topk"] = phase_topk_kernel(dev, assets, init, ks, cls, rc)
+    tex_assets = hl.headline_assets(dev, textured=True)
+    runs = synthesis_assets(dev, assets, tex_assets)
+    counts.update(phase_synthesis(dev, card, rc, runs, record))
+    counts.update(phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls))
+    phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls)
+
     kernels = []
-    for kname, src, line, headline_case in (
+    for kname, src, line, timed_case in (
             ("raster_cols", "raster_cols.cu", 418, "cols_route"),
-            ("raster_sorted", "raster_sorted.cu", 758, "sort_route")):
+            ("raster_sorted", "raster_sorted.cu", 758, "sort_route"),
+            # The shape the top-k route's entry points give it.
+            ("raster_topk", "raster_topk.cu", 857, "full_frame_render_batch")):
         main = next(r for r in record[kname]
-                    if r["case"] == headline_case and r["size"] == "480x640")
+                    if r["case"] == timed_case and r["size"] == "480x640")
+        by_run = {name: c[kname] for name, c in counts.items() if c[kname]}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"deepim_tpu_torch/raster/csrc/{src}",
             "replaces": f"deepim_tpu/raster/raster_pallas.py:{line}",
-            "launches": counts["headline"][kname] + counts["sort_route"][kname],
-            "launches_headline": counts["headline"][kname],
-            "launches_sort_route": counts["sort_route"][kname],
+            "launches": sum(by_run.values()),
+            "launches_by_run": by_run,
             "max_abs_err": max(r["max_abs_err"] for r in record[kname]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "timed_case": f"{headline_case} 480x640",
+            "timed_case": f"{timed_case} 480x640",
         })
     for k in kernels:
         if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was not launched on the main path")
+            raise AssertionError(f"{k['name']} was not launched on a path of the port")
     return kernels
 
 

@@ -5,8 +5,12 @@ subpackages and function names so each counterpart is easy to find.  It
 imports ``torch`` and numpy only (never jax), computes on the device of its
 inputs, and draws random numbers from explicit ``torch.Generator``s.
 
-The slice ported so far is the inference refine loop
-(:func:`deepim_tpu_torch.refine.refine_poses`): render -> zoom -> FlowNetS
-pose head -> untangled SE(3) compose.  Its two rasterizer kernels are
-hand-written CUDA (``raster/csrc``), built at first use on the card.
+Ported so far: the inference refine loop
+(:func:`deepim_tpu_torch.refine.refine_poses`: render -> zoom -> FlowNetS
+pose head -> untangled SE(3) compose), on untextured and textured assets;
+the multi-object scene render (:func:`deepim_tpu_torch.refine.render_scene`)
+and on-device pair synthesis (:mod:`deepim_tpu_torch.data.synthetic`); and
+the renderer's entry points with every binning route, face chunking and
+the deferred-texture pass.  All three rasterizer kernels are hand-written
+CUDA (``raster/csrc``), built at first use on the card.
 """

@@ -6,7 +6,9 @@ bench's symmetries, B=128 hypotheses sampled in the LINEMOD camera's
 frustum and perturbed, a random observed image, K=4 iterations of which
 the first 2 run at 240x320 and the last 2 at 480x640, back-face culling
 on.  The weights are random, drawn from a seed; the pose heads get a
-little noise so the poses move.  ``chip_smoke.py`` and
+little noise so the poses move.  The textured variant gives each of the
+four meshes a 64x64 procedural texture (``texturize(mesh, seed=i)``), a
+protocol of the port only.  ``chip_smoke.py`` and
 :mod:`deepim_tpu_torch.profile_headline` drive the port through it.
 """
 
@@ -21,7 +23,7 @@ from deepim_tpu_torch.geometry.symmetry import rot_z_syms
 from deepim_tpu_torch.models.flownet import DeepIMFlowNet, bottleneck_grid
 from deepim_tpu_torch.raster.camera import make_intrinsics
 from deepim_tpu_torch.raster.mesh import (
-    box_mesh, cylinder_mesh, decimate_mesh, icosphere_mesh, torus_mesh)
+    box_mesh, cylinder_mesh, decimate_mesh, icosphere_mesh, texturize, torus_mesh)
 from deepim_tpu_torch.refine import RenderAssets, build_assets, refine_poses
 
 B = 128
@@ -29,6 +31,8 @@ SIZE, COARSE = (480, 640), (240, 320)
 K_ITERS, COARSE_ITERS = 4, 2
 LOD_FACES = 1024
 SEED = 7
+LINEMOD_K = (572.4114, 573.5704, 325.2611, 242.049)  # fx, fy, cx, cy
+TEXTURE_SIZE = (64, 64)
 HEAD_SCALE = 0.02  # noise on the zero pose heads: poses move a little per step
 
 
@@ -39,19 +43,23 @@ def card() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.splitlines()[0]
 
 
-def headline_meshes(dense_sphere: bool = True):
+def headline_meshes(dense_sphere: bool = True, textured: bool = False):
     """The bench's four meshes and symmetries.  ``dense_sphere=False``
     decimates the sphere under 1,024 faces, so every crop takes the sorted
-    kernel's route instead of the cols kernel's."""
+    kernel's route instead of the cols kernel's; ``textured`` gives mesh i
+    the procedural texture of seed i."""
     sphere = icosphere_mesh(0.05, subdivisions=3)
     if not dense_sphere:
         sphere = decimate_mesh(sphere, 1020)
-    return ([box_mesh((0.08, 0.1, 0.06)), sphere, cylinder_mesh(), torus_mesh()],
-            [rot_z_syms(2), None, None, rot_z_syms(8)])
+    meshes = [box_mesh((0.08, 0.1, 0.06)), sphere, cylinder_mesh(), torus_mesh()]
+    if textured:
+        meshes = [texturize(m, seed=i, size=TEXTURE_SIZE) for i, m in enumerate(meshes)]
+    return meshes, [rot_z_syms(2), None, None, rot_z_syms(8)]
 
 
-def headline_assets(device, dense_sphere: bool = True) -> RenderAssets:
-    meshes, syms = headline_meshes(dense_sphere)
+def headline_assets(device, dense_sphere: bool = True,
+                    textured: bool = False) -> RenderAssets:
+    meshes, syms = headline_meshes(dense_sphere, textured)
     return build_assets(meshes, sym_transforms=syms, num_points=3000,
                         lod_faces=LOD_FACES, device=device)
 
@@ -60,7 +68,7 @@ def headline_inputs(device, num_classes: int, batch: int = B):
     """(obs (B, H, W, 3), init (B, 3, 4), ks (B, 3, 3), cls (B,)), drawn
     from one generator seeded ``SEED`` on ``device``."""
     g = torch.Generator(device=device).manual_seed(SEED)
-    k_cam = make_intrinsics(572.4114, 573.5704, 325.2611, 242.049, device=device)
+    k_cam = make_intrinsics(*LINEMOD_K, device=device)
     gt = sample_poses_in_frustum(g, batch, k_cam, SIZE)
     init = perturb_poses(g, gt)
     cls = torch.randint(0, num_classes, (batch,), generator=g, device=device)

@@ -1,10 +1,11 @@
-"""Build and bind the crop-raster CUDA kernels (``csrc/*.cu``).
+"""Build and bind the raster CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``: no PyTorch headers, so the build takes
-seconds.  The library lands in ``deepim_tpu_torch/_build/`` under a name
-keyed by the hash of the sources and flags, so the first call after a
-source change rebuilds it and every later call (and process) reuses it.
+Each source compiles with its own ``nvcc``, all started together, and one
+link makes a shared library with a plain C interface, loaded with
+``ctypes``: no PyTorch headers, so the build takes seconds.  The library
+lands in ``deepim_tpu_torch/_build/`` under a name keyed by the hash of
+the sources and flags, so the first call after a source change rebuilds
+it and every later call (and process) reuses it.
 Nothing happens at import: :func:`load` builds on first use.  A failed
 build raises; there is no fallback.
 """
@@ -25,16 +26,25 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_ENTRIES = ("deepim_raster_cols", "deepim_raster_sorted")
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+#: Each entry point and its C signature (pointers as c_void_p, never cut to
+#: 32 bits); every one returns a cudaError_t.
+_ENTRIES = {
+    # params, ids, starts, glob, rgb, depth, B, F, H, W, n_ids, n_glob, stream
+    "deepim_raster_cols": [_ptr] * 6 + [_i32] * 6 + [_ptr],
+    "deepim_raster_sorted": [_ptr] * 6 + [_i32] * 6 + [_ptr],
+    # params, lists, counts, rgb, depth, B, F, H, W, K, stream
+    "deepim_raster_topk": [_ptr] * 5 + [_i32] * 5 + [_ptr],
+}
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
 class BuildInfo(NamedTuple):
     path: Path  # the shared library
-    seconds: float  # nvcc wall time, 0.0 when an existing build was reused
+    seconds: float  # nvcc wall time (compiles and link), 0.0 when reused
     log: str  # nvcc's output (-Xptxas -v: registers, shared memory, spills)
 
 
@@ -63,19 +73,26 @@ def build() -> BuildInfo:
     if out.exists():
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return BuildInfo(out, seconds, log)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [f"{tmp}/{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for src, obj in zip(srcs, objs)]
+        log = "".join(p.communicate()[0] for p in procs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        so = f"{tmp}/lib.so"
+        link = subprocess.run([nvcc, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(so, out)  # atomic: a concurrent loader sees all or nothing
+    return BuildInfo(out, time.perf_counter() - t0, log)
 
 
 def load() -> ctypes.CDLL:
@@ -84,14 +101,11 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build().path))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            for name in _ENTRIES:
+            for name, argtypes in _ENTRIES.items():
                 fn = getattr(lib, name)
-                # params, ids, starts, glob, rgb, depth, B, F, H, W, n_ids,
-                # n_glob, stream -> cudaError_t
-                fn.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-                fn.restype = i32
-            lib.deepim_error_string.argtypes = [i32]
+                fn.argtypes = argtypes
+                fn.restype = _i32
+            lib.deepim_error_string.argtypes = [_i32]
             lib.deepim_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib

@@ -1,6 +1,6 @@
-// Device code shared by the two crop-raster kernels (raster_cols.cu,
-// raster_sorted.cu).  Face parameter layout, 24 floats per face, as packed
-// by raster_cuda.py §_plane_pack:
+// Device code shared by the three raster kernels (raster_cols.cu,
+// raster_sorted.cu, raster_topk.cu).  Face parameter layout, 24 floats per
+// face, as packed by raster_cuda.py §_plane_pack:
 //   [A0 B0 C0 | A1 B1 C1 | A2 B2 C2 | az bz cz | ar br cr | ag bg cg | ab bb cb | 0 0 0]
 // Each triple is a screen-space plane a*x + b*y + c: three barycentrics, the
 // inverse depth, and three perspective-correct colour numerators.

@@ -4,7 +4,9 @@ Numpy copy of the parts of ``deepim_tpu/raster/mesh.py`` that
 ``build_assets`` and the headline protocol need: ``Mesh``, ``make_mesh``,
 ``compute_vertex_normals``, the four procedural builders (``box_mesh``,
 ``icosphere_mesh``, ``cylinder_mesh``, ``torus_mesh``), ``pad_mesh``,
-``decimate_mesh``, ``sample_points`` and ``cull_direction``.
+``decimate_mesh``, ``sample_points`` and ``cull_direction``, and the
+texture helpers ``procedural_texture``, ``planar_uv``, ``texturize`` and
+``bake_texture_to_vertices``.
 
 A copy and not an import: ``deepim_tpu/raster/__init__.py`` imports jax.
 The reference routes meshes of 20,000+ faces to a C++ helper for vertex
@@ -408,3 +410,120 @@ def cull_direction(mesh: Mesh) -> float:
     if abs(vol) < 1e-12 * scale**3:
         return 0.0
     return float(np.sign(vol))
+
+
+# ---------------------------------------------------------------------------
+# Textures (procedural stand-ins for scanned texture maps)
+# ---------------------------------------------------------------------------
+
+
+def procedural_texture(seed: int, size: tuple[int, int] = (64, 64)
+                       ) -> np.ndarray:
+    """Random layered texture image -> (H, W, 3) float32 in [0, 1].
+
+    Stand-in for YCB's scanned texture maps (the sandbox has no real
+    assets): a base color plus 2-3 random layers drawn from
+    {checkerboard, stripes, gaussian blobs, smooth noise} — enough spatial
+    structure that per-pixel texture sampling carries real appearance
+    signal (flow/pose supervision can latch onto texture detail the way it
+    does on scanned meshes).
+    """
+    rng = np.random.RandomState(seed)
+    h, w = size
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    img = np.ones((h, w, 3), np.float32) * (0.25 + 0.6 * rng.rand(3))
+
+    def rand_color():
+        return (0.1 + 0.9 * rng.rand(3)).astype(np.float32)
+
+    for _ in range(rng.randint(2, 4)):
+        kind = rng.randint(4)
+        color = rand_color()
+        alpha = 0.4 + 0.6 * rng.rand()
+        if kind == 0:  # checkerboard
+            cell = rng.randint(4, max(5, h // 4))
+            m = ((yy // cell + xx // cell) % 2).astype(np.float32)
+        elif kind == 1:  # stripes at a random angle
+            ang = rng.rand() * np.pi
+            period = rng.randint(6, max(7, h // 2))
+            t = xx * np.cos(ang) + yy * np.sin(ang)
+            m = (np.sin(2 * np.pi * t / period) > 0).astype(np.float32)
+        elif kind == 2:  # gaussian blobs
+            m = np.zeros((h, w), np.float32)
+            for _b in range(rng.randint(3, 8)):
+                cy, cx_ = rng.rand(2) * (h, w)
+                s = (0.05 + 0.15 * rng.rand()) * h
+                m += np.exp(-((yy - cy) ** 2 + (xx - cx_) ** 2)
+                            / (2 * s * s))
+            m = np.clip(m, 0, 1)
+        else:  # smooth noise (upsampled coarse grid, bilinear)
+            g = rng.rand(5, 5).astype(np.float32)
+            fy = np.linspace(0, 4, h)
+            fx = np.linspace(0, 4, w)
+            y0 = np.clip(fy.astype(int), 0, 3)
+            x0 = np.clip(fx.astype(int), 0, 3)
+            ty = (fy - y0)[:, None]
+            tx = (fx - x0)[None, :]
+            m = ((1 - ty) * (1 - tx) * g[y0][:, x0]
+                 + (1 - ty) * tx * g[y0][:, x0 + 1]
+                 + ty * (1 - tx) * g[y0 + 1][:, x0]
+                 + ty * tx * g[y0 + 1][:, x0 + 1])
+        img = img * (1 - alpha * m[..., None]) \
+            + color * (alpha * m[..., None])
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def planar_uv(vertices: np.ndarray, axis: int = 2) -> np.ndarray:
+    """Planar-projection UVs: drop ``axis``, normalize the other two to
+    [0, 1] -> (V, 2).
+
+    Seam-free by construction (u, v are continuous in vertex position —
+    no cylindrical wrap), which matters because the deferred-texturing
+    raster interpolates per-corner UVs and the atlas sampler clamps to
+    [0, 1]; the cost is mirrored texture on surfaces facing away from the
+    projection axis, irrelevant for training-signal purposes.
+    """
+    keep = [i for i in range(3) if i != axis]
+    p = vertices[:, keep].astype(np.float32)
+    lo = p.min(0)
+    ext = np.maximum(p.max(0) - lo, 1e-6)
+    return (p - lo) / ext
+
+
+def texturize(mesh: Mesh, seed: int, size: tuple[int, int] = (64, 64)
+              ) -> Mesh:
+    """Attach a procedural texture + planar UVs to a mesh (random
+    projection axis per seed); colors are re-baked so the baked-vertex
+    fallback path stays consistent with the texture."""
+    rng = np.random.RandomState(seed)
+    uv = planar_uv(mesh.vertices, axis=int(rng.randint(3)))
+    tex = procedural_texture(seed, size)
+    colors = bake_texture_to_vertices(uv, tex)
+    return Mesh(mesh.vertices, mesh.faces, colors.astype(np.float32),
+                mesh.normals, uv=uv.astype(np.float32), texture=tex)
+
+
+def bake_texture_to_vertices(uv: np.ndarray, texture: np.ndarray) -> np.ndarray:
+    """Sample a texture image at per-vertex UVs -> (V, 3) colors in [0, 1].
+
+    YCB-style textured meshes sample in v1 via color baking (SURVEY.md §7
+    step 2: dodge in-raster texture lookups; scanned meshes are dense
+    enough that per-vertex color preserves appearance at crop scales).
+    UV origin bottom-left (OpenGL convention, matching the reference's
+    GLSL texture path); bilinear taps.
+    """
+    h, w = texture.shape[:2]
+    x = np.clip(uv[:, 0], 0, 1) * (w - 1)
+    y = (1.0 - np.clip(uv[:, 1], 0, 1)) * (h - 1)
+    x0 = np.floor(x).astype(int)
+    y0 = np.floor(y).astype(int)
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    tx = (x - x0)[:, None]
+    ty = (y - y0)[:, None]
+    t = texture[..., :3].astype(np.float32)
+    if t.max() > 1.5:
+        t = t / 255.0
+    top = t[y0, x0] * (1 - tx) + t[y0, x1] * tx
+    bot = t[y1, x0] * (1 - tx) + t[y1, x1] * tx
+    return (top * (1 - ty) + bot * ty).astype(np.float32)

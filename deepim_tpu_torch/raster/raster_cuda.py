@@ -1,17 +1,21 @@
-"""Tiled, sort-binned rasterizer with hand-written CUDA kernels.
+"""Tiled rasterizer with hand-written CUDA kernels.
 
 Port of ``deepim_tpu/raster/raster_pallas.py``: the plane packing
-(``_plane_pack``, ``pack_corner_major``, ``pack_tri_params``), the sort
-binning (``bin_faces_sorted``, ``bin_faces_packed``), the launchers
-(``_render_from_params_cols`` with its overflow fallback,
-``_render_from_params_sorted``, ``_render_chunk``, ``_render_dispatch``)
-and ``render_batch_tri``.
+(``_plane_pack``, ``pack_face_params``, ``pack_corner_major``,
+``pack_tri_params``), the binning (``bin_faces`` as :func:`bin_faces_topk`,
+``bin_faces_sorted``, ``bin_faces_packed``), the launchers
+(``_render_from_params`` as :func:`_render_from_params_topk`,
+``_render_from_params_cols`` with its overflow fallback,
+``_render_from_params_sorted``, ``_render_chunk``, the face chunking and
+z-merge of ``_render_dispatch``) and the entry points ``render_batch`` and
+``render_batch_tri``.
 
-The two TPU kernels ``_raster_kernel_cols`` and ``_raster_kernel_sorted``
-become the CUDA kernels in ``csrc/raster_cols.cu`` and
-``csrc/raster_sorted.cu``.  Each has a wrapper here (:func:`raster_cols`,
-:func:`raster_sorted`) and a plain PyTorch version beside it
-(:func:`raster_cols_ref`, :func:`raster_sorted_ref`) that takes the same
+The three TPU kernels ``_raster_kernel_cols``, ``_raster_kernel_sorted``
+and ``_raster_kernel`` become the CUDA kernels in ``csrc/raster_cols.cu``,
+``csrc/raster_sorted.cu`` and ``csrc/raster_topk.cu``.  Each has a wrapper
+here (:func:`raster_cols`, :func:`raster_sorted`, :func:`raster_topk`) and
+a plain PyTorch version beside it (:func:`raster_cols_ref`,
+:func:`raster_sorted_ref`, :func:`raster_topk_ref`) that takes the same
 binned inputs and gives the same outputs.  Dispatch rule, with no
 fallback: a CUDA tensor goes to the kernel (a build or launch failure
 raises), a CPU tensor goes to the plain version.
@@ -26,23 +30,32 @@ divide per pixel at the end gives metric depth (0 = background) and rgb.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import torch
 
-from deepim_tpu_torch.raster.raster_ref import FLAT_LIGHTING, Lighting, light_direction
+from deepim_tpu_torch.raster.raster_ref import (
+    FLAT_LIGHTING,
+    Lighting,
+    light_direction,
+    project_vertices,
+    shade_vertices,
+)
 
 #: Launches of each hand-written kernel, and renders that took the cols
 #: path's lossless sorted fallback.  Only the wrappers and the cols
 #: launcher add to these; a caller resets them to count one run.
-LAUNCHES = {"raster_cols": 0, "raster_sorted": 0, "cols_fallback": 0}
+LAUNCHES = {"raster_cols": 0, "raster_sorted": 0, "raster_topk": 0, "cols_fallback": 0}
 
-# The cols kernel's sub-tile and the sorted kernel's tile (both fixed in
-# the CUDA sources).
+# The cols kernel's sub-tile, and the tile of the sorted and top-k kernels
+# (all fixed in the CUDA sources; the entry points refuse any other tile).
 COLS_TILE = (8, 128)
 SORT_TILE = (32, 256)
-# Above this face count the reference renders in face chunks and z-merges
-# them; the port has not ported that path yet (ROADMAP queue B).
+BINNINGS = ("auto", "cols", "sort", "topk")
+# Above this face count a render runs in face chunks that are z-merged.
+# The reference's bound is a TPU VMEM limit; the port keeps it so that
+# routes match the reference chunk by chunk (ROADMAP C.5).
 _FACE_CHUNK = 12288
 # "auto" binning crossover of the sparse full-frame regime, and the
 # crop-regime crossover that render_crops dispatches on (both chosen on
@@ -180,9 +193,64 @@ def pack_tri_params(tri_pos, tri_col, tri_nrm, pose, k, lighting: Lighting,
     )
 
 
+def pack_face_params(vertices, faces, colors, normals, pose, k, lighting: Lighting,
+                     z_near: float, cull_dir=None):
+    """Vertex+faces pack (gathers per face), batched.
+
+    ``vertices``/``colors``/``normals`` (B, V, 3); ``faces`` (B, F, 3) int;
+    ``pose`` (B, 3, 4); ``k`` (B, 3, 3); ``cull_dir`` (B,) or None.
+    Vertices are projected and shaded once, then gathered per corner.
+    """
+    screen, z = project_vertices(vertices, pose, k)  # (B, V, 2), (B, V)
+    shaded = shade_vertices(colors, normals, pose, lighting)  # (B, V, 3)
+    bidx = torch.arange(faces.shape[0], device=faces.device)[:, None, None]
+    fl = faces.long()
+    txy, tz, tc = screen[bidx, fl], z[bidx, fl], shaded[bidx, fl]  # (B, F, 3, ...)
+    face_ok = (tz > z_near).all(-1)
+    xy = tuple((txy[..., c, 0], txy[..., c, 1]) for c in range(3))
+    zs = tuple(tz[..., c] for c in range(3))
+    col = tuple(tuple(tc[..., c, ch] for ch in range(3)) for c in range(3))
+    cd = None if cull_dir is None else cull_dir[:, None]
+    return _plane_pack(xy, zs, col, face_ok, cd)
+
+
 # --------------------------------------------------------------------------
 # Binning (batched over the leading sample axis; torch ops)
 # --------------------------------------------------------------------------
+
+
+def bin_faces_topk(bbox, face_ok, image_size, max_faces_per_tile: int):
+    """Capped per-tile face lists for the top-k kernel (the reference's
+    ``bin_faces``).
+
+    A face is incident on a 32x256 tile when its bbox meets the tile, both
+    ends inclusive (``umin <= x0 + tw`` and ``umax >= x0``, likewise in y),
+    with no on-screen clip.  Each tile keeps its first ``K = min(
+    max_faces_per_tile, F)`` incident faces in ascending face id and drops
+    the rest.
+
+    Returns (lists (B, T, K) int32, counts (B, T) int32) over row-major
+    tiles ``t = ty * TX + tx``; ``counts = min(incident, K)``, and entries
+    of a list past its count are unspecified.
+    """
+    b, f = face_ok.shape
+    h, w = image_size
+    th, tw = SORT_TILE
+    ty, tx = _cdiv(h, th), _cdiv(w, tw)
+    k = min(max_faces_per_tile, f)
+    dev = bbox.device
+    umin, umax, vmin, vmax = bbox.unbind(-1)
+    x0 = torch.arange(tx, dtype=torch.float32, device=dev) * tw
+    y0 = torch.arange(ty, dtype=torch.float32, device=dev) * th
+    hit_x = (umin[..., None] <= x0 + tw) & (umax[..., None] >= x0)  # (B, F, TX)
+    hit_y = (vmin[..., None] <= y0 + th) & (vmax[..., None] >= y0)  # (B, F, TY)
+    incident = (hit_y[..., None] & hit_x[:, :, None, :] & face_ok[..., None, None])
+    incident = incident.reshape(b, f, ty * tx).transpose(1, 2)  # (B, T, F)
+    counts = incident.sum(-1, dtype=torch.int32).clamp_max(k)
+    # Scores F - id rank incident faces by ascending id ahead of the rest.
+    score = torch.where(incident, f - torch.arange(f, dtype=torch.int32, device=dev), -1)
+    lists = torch.topk(score, k, dim=-1).indices.to(torch.int32)
+    return lists, counts
 
 
 def _tile_span(bbox, face_ok, image_size, tile, sy_span, sx_span):
@@ -417,6 +485,18 @@ def raster_cols_ref(params, face_ids, starts, glob_col, h: int, w: int):
     return _finish(*img)
 
 
+def _resolve_tiles_ref(params, lists, valid, h: int, w: int):
+    """Resolve per-tile lists over row-major 32x256 tiles -> (rgb, depth)."""
+    b = params.shape[0]
+    th, tw = SORT_TILE
+    ty, tx = _cdiv(h, th), _cdiv(w, tw)
+    t = torch.arange(ty * tx, device=params.device)
+    acc = _resolve_ref(params, lists, valid, (t // tx) * th, (t % tx) * tw, SORT_TILE)
+    img = [a.reshape(b, ty, tx, th, tw).permute(0, 1, 3, 2, 4)
+           .reshape(b, ty * th, tx * tw)[:, :h, :w] for a in acc]
+    return _finish(*img)
+
+
 def raster_sorted_ref(params, vals, starts, glob, h: int, w: int):
     """Plain PyTorch version of the sorted kernel (same inputs and outputs).
 
@@ -425,20 +505,27 @@ def raster_sorted_ref(params, vals, starts, glob, h: int, w: int):
     list ``glob[1:1+glob[0]]``.  -> (rgb (B,3,H,W), depth (B,H,W)).
     """
     b = params.shape[0]
-    th, tw = SORT_TILE
-    ty, tx = _cdiv(h, th), _cdiv(w, tw)
-    dev = params.device
+    n_tiles = starts.shape[1] - 1
     lists1, valid1 = _range_lists(vals, starts[:, :-1], starts[:, 1:])
     g = glob.shape[1] - 1
-    lists2 = glob[:, None, 1:].expand(b, ty * tx, g)
-    valid2 = (torch.arange(g, device=dev) < glob[:, :1])[:, None, :].expand(b, ty * tx, g)
+    lists2 = glob[:, None, 1:].expand(b, n_tiles, g)
+    valid2 = (torch.arange(g, device=params.device) < glob[:, :1])[:, None, :]
     lists = torch.cat([lists1, lists2], dim=2)
-    valid = torch.cat([valid1, valid2], dim=2)
-    t = torch.arange(ty * tx, device=dev)
-    acc = _resolve_ref(params, lists, valid, (t // tx) * th, (t % tx) * tw, SORT_TILE)
-    img = [a.reshape(b, ty, tx, th, tw).permute(0, 1, 3, 2, 4)
-           .reshape(b, ty * th, tx * tw)[:, :h, :w] for a in acc]
-    return _finish(*img)
+    valid = torch.cat([valid1, valid2.expand(b, n_tiles, g)], dim=2)
+    return _resolve_tiles_ref(params, lists, valid, h, w)
+
+
+def raster_topk_ref(params, lists, counts, h: int, w: int):
+    """Plain PyTorch version of the top-k kernel (same inputs and outputs).
+
+    Pixel (y, x) belongs to row-major tile ``t = (y // 32) * TX + x // 256``;
+    its face list is ``lists[t, :counts[t]]``.  -> (rgb (B,3,H,W), depth
+    (B,H,W)).  Lists are cut to the largest count first (the rest is never
+    walked).
+    """
+    width = int(counts.max()) if counts.numel() else 0
+    valid = torch.arange(width, device=params.device) < counts[..., None]
+    return _resolve_tiles_ref(params, lists[..., :width], valid, h, w)
 
 
 # --------------------------------------------------------------------------
@@ -446,28 +533,37 @@ def raster_sorted_ref(params, vals, starts, glob, h: int, w: int):
 # --------------------------------------------------------------------------
 
 
-def _check_inputs(params, ids, starts, glob, n_tiles: int, min_glob: int):
+def _check_arrays(params, **ints):
+    """Device, dtype, contiguity and batch of ``params`` (B, F, 24) f32 and
+    of the int32 arrays ``ints`` (name -> (tensor, ndim))."""
     dev = params.device
-    for name, x, dt in (("params", params, torch.float32), ("ids", ids, torch.int32),
-                        ("starts", starts, torch.int32), ("glob", glob, torch.int32)):
+    arrays = {"params": (params, 3, torch.float32),
+              **{n: (x, nd, torch.int32) for n, (x, nd) in ints.items()}}
+    for name, (x, ndim, dt) in arrays.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, params on {dev}")
         if x.dtype != dt:
             raise TypeError(f"{name} must be {dt}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if x.dim() != (3 if name == "params" else 2) or x.shape[0] != params.shape[0]:
+        if x.dim() != ndim or x.shape[0] != params.shape[0]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}")
     if params.shape[2] != 24 or params.data_ptr() % 16:
         raise ValueError("params must be (B, F, 24) and 16-byte aligned")
-    if starts.shape[1] != n_tiles + 1 or glob.shape[1] < min_glob:
-        raise ValueError(f"starts {tuple(starts.shape)} / glob {tuple(glob.shape)} "
-                         f"do not fit {n_tiles} tiles")
     if not 0 < params.shape[0] <= 65535:
         raise ValueError("batch must be in 1..65535 (grid y dimension)")
 
 
-def _launch(entry: str, params, ids, starts, glob, h: int, w: int):
+def _check_inputs(params, ids, starts, glob, n_tiles: int, min_glob: int):
+    _check_arrays(params, ids=(ids, 2), starts=(starts, 2), glob=(glob, 2))
+    if starts.shape[1] != n_tiles + 1 or glob.shape[1] < min_glob:
+        raise ValueError(f"starts {tuple(starts.shape)} / glob {tuple(glob.shape)} "
+                         f"do not fit {n_tiles} tiles")
+
+
+def _launch(entry: str, params, arrays, sizes, h: int, w: int):
+    """Allocate the outputs and launch ``entry(params, *arrays, rgb, depth,
+    B, F, H, W, *sizes, stream)`` on the current stream; raise on error."""
     from deepim_tpu_torch.raster import _build
 
     b, f = params.shape[0], params.shape[1]
@@ -477,9 +573,8 @@ def _launch(entry: str, params, ids, starts, glob, h: int, w: int):
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
-            params.data_ptr(), ids.data_ptr(), starts.data_ptr(), glob.data_ptr(),
-            rgb.data_ptr(), depth.data_ptr(), b, f, h, w, ids.shape[1],
-            glob.shape[1], stream)
+            params.data_ptr(), *(a.data_ptr() for a in arrays), rgb.data_ptr(),
+            depth.data_ptr(), b, f, h, w, *sizes, stream)
     if err:
         raise RuntimeError(
             f"{entry} launch failed: {lib.deepim_error_string(err).decode()}")
@@ -499,7 +594,8 @@ def raster_cols(params, face_ids, starts, glob_col, h: int, w: int):
     n_cols = _cdiv(w, COLS_TILE[1])
     _check_inputs(params, face_ids, starts, glob_col,
                   _cdiv(h, COLS_TILE[0]) * n_cols, n_cols + 1)
-    out = _launch("deepim_raster_cols", params, face_ids, starts, glob_col, h, w)
+    out = _launch("deepim_raster_cols", params, (face_ids, starts, glob_col),
+                  (face_ids.shape[1], glob_col.shape[1]), h, w)
     LAUNCHES["raster_cols"] += 1
     return out
 
@@ -516,8 +612,32 @@ def raster_sorted(params, vals, starts, glob, h: int, w: int):
         raise ValueError(f"no raster kernel for device {params.device}")
     _check_inputs(params, vals, starts, glob,
                   _cdiv(h, SORT_TILE[0]) * _cdiv(w, SORT_TILE[1]), 1)
-    out = _launch("deepim_raster_sorted", params, vals, starts, glob, h, w)
+    out = _launch("deepim_raster_sorted", params, (vals, starts, glob),
+                  (vals.shape[1], glob.shape[1]), h, w)
     LAUNCHES["raster_sorted"] += 1
+    return out
+
+
+def raster_topk(params, lists, counts, h: int, w: int):
+    """Top-k raster kernel (``csrc/raster_topk.cu``) on binned inputs.
+
+    ``params`` (B, F, 24) f32; ``lists`` (B, T, K) and ``counts`` (B, T)
+    int32 from :func:`bin_faces_topk` -> (rgb (B, 3, H, W), depth (B, H, W)).
+    The reference fuses each tile's count and ids into one ``[count |
+    ids...]`` row for its SMEM DMA; the kernel reads the two arrays as
+    they are.
+    """
+    if params.device.type == "cpu":
+        return raster_topk_ref(params, lists, counts, h, w)
+    if not params.is_cuda:
+        raise ValueError(f"no raster kernel for device {params.device}")
+    _check_arrays(params, lists=(lists, 3), counts=(counts, 2))
+    n_tiles = _cdiv(h, SORT_TILE[0]) * _cdiv(w, SORT_TILE[1])
+    if lists.shape[1] != n_tiles or counts.shape[1] != n_tiles:
+        raise ValueError(f"lists {tuple(lists.shape)} / counts {tuple(counts.shape)} "
+                         f"do not fit {n_tiles} tiles")
+    out = _launch("deepim_raster_topk", params, (lists, counts), (lists.shape[2],), h, w)
+    LAUNCHES["raster_topk"] += 1
     return out
 
 
@@ -552,8 +672,20 @@ def _render_from_params_cols(params, bbox, face_ok, image_size):
     return raster_cols(params, face_ids, starts, glob, h, w)
 
 
-def _render_chunk(params, bbox, face_ok, image_size, binning, spans=(4, 2)):
-    """One kernel route -> (rgb NCHW, depth)."""
+def _render_from_params_topk(params, bbox, face_ok, image_size,
+                             max_faces_per_tile: int):
+    """Capped per-tile binning, then the top-k kernel -> (rgb NCHW, depth)."""
+    lists, counts = bin_faces_topk(bbox, face_ok, image_size, max_faces_per_tile)
+    return raster_topk(params, lists, counts, *image_size)
+
+
+def _render_chunk(params, bbox, face_ok, image_size, binning, spans=(4, 2),
+                  max_faces_per_tile: int = 512):
+    """One kernel route for at most ``_FACE_CHUNK`` faces -> (rgb NCHW, depth).
+
+    "auto" picks on this chunk's own face count.  ``spans`` applies to the
+    sort route only, ``max_faces_per_tile`` to the top-k route only.
+    """
     if binning == "auto":
         binning = "cols" if params.shape[1] >= _COLS_MIN_FACES else "sort"
     if binning == "cols":
@@ -562,35 +694,96 @@ def _render_chunk(params, bbox, face_ok, image_size, binning, spans=(4, 2)):
         return _render_from_params_sorted(params, bbox, face_ok, image_size,
                                           sy_span=spans[0], sx_span=spans[1])
     if binning == "topk":
-        raise NotImplementedError(
-            "binning='topk' (the capped legacy kernel) is not ported yet "
-            "(ROADMAP queue B, last)")
-    raise ValueError(binning)
+        # stacklevel 5: past _render_dispatch, the entry point and its
+        # no_grad wrapper, to the caller.
+        warnings.warn(
+            "binning='topk' caps each tile at max_faces_per_tile faces and "
+            "SILENTLY DROPS the rest (visible holes on dense meshes); it is "
+            "kept only as a legacy comparison path — use 'auto', 'sort', or "
+            "'cols' (all lossless)",
+            RuntimeWarning,
+            stacklevel=5,
+        )
+        return _render_from_params_topk(params, bbox, face_ok, image_size,
+                                        max_faces_per_tile)
+    raise ValueError(f"binning must be one of {BINNINGS}, got {binning!r}")
 
 
-def _render_dispatch(params, bbox, face_ok, image_size, binning, spans=(4, 2)):
-    """Pick the kernel route; returns (rgb (B, H, W, 3) view, depth (B, H, W))."""
-    if params.shape[1] > _FACE_CHUNK:
-        raise NotImplementedError(
-            f"{params.shape[1]} faces > {_FACE_CHUNK}: face chunking with "
-            "z-merge is not ported yet (ROADMAP queue B)")
-    rgb, depth = _render_chunk(params, bbox, face_ok, image_size, binning, spans)
+def _zmerge_nchw(a, b):
+    """Merge two (rgb (B,3,H,W), depth (B,H,W)) renders: b wins a pixel where
+    it is not background and strictly nearer, or a is background."""
+    (rgb_a, d_a), (rgb_b, d_b) = a, b
+    take_b = (d_b > 0) & ((d_a == 0) | (d_b < d_a))
+    return torch.where(take_b[:, None], rgb_b, rgb_a), torch.where(take_b, d_b, d_a)
+
+
+def _render_dispatch(params, bbox, face_ok, image_size, binning, spans=(4, 2),
+                     max_faces_per_tile: int = 512):
+    """Pick the kernel route, in face chunks of at most ``_FACE_CHUNK`` that
+    are z-merged in order (the earlier chunk wins ties).
+
+    Returns (rgb (B, H, W, 3) view, depth (B, H, W)).
+    """
+    f = params.shape[1]
+    out = None
+    for c0 in range(0, f, _FACE_CHUNK) if f > _FACE_CHUNK else (0,):
+        sl = slice(c0, c0 + _FACE_CHUNK)
+        part = _render_chunk(params[:, sl].contiguous(), bbox[:, sl], face_ok[:, sl],
+                             image_size, binning, spans, max_faces_per_tile)
+        out = part if out is None else _zmerge_nchw(out, part)
+    rgb, depth = out
     return rgb.permute(0, 2, 3, 1), depth
+
+
+def check_tile(tile) -> None:
+    """The CUDA kernels are built for 32x256 tiles; refuse any other."""
+    if tuple(tile) != SORT_TILE:
+        raise ValueError(f"tile must be {SORT_TILE} (fixed in the CUDA kernels), got {tile}")
+
+
+@torch.no_grad()
+def render_batch(vertices, faces, colors, normals, poses, ks,
+                 image_size: tuple[int, int],
+                 lighting: Lighting = FLAT_LIGHTING, z_near: float = 0.01,
+                 tile: tuple[int, int] = SORT_TILE, max_faces_per_tile: int = 512,
+                 binning: str = "auto"):
+    """Render a batch of hypotheses from vertex+faces meshes -> (rgb (B, H,
+    W, 3), depth (B, H, W)).
+
+    ``vertices``/``colors``/``normals`` are (V, 3) shared or (B, V, 3) per
+    sample; ``faces`` (F, 3) shared or (B, F, 3) per sample; ``poses``
+    (B, 3, 4); ``ks`` (B, 3, 3).  ``binning``: "auto" | "cols" | "sort" |
+    "topk" (capped at ``max_faces_per_tile`` per tile; drops the rest).
+    """
+    check_tile(tile)
+    b = poses.shape[0]
+    if vertices.dim() == 2:
+        vertices, colors, normals = (a.expand(b, *a.shape) for a in (vertices, colors, normals))
+    if faces.dim() == 2:
+        faces = faces.expand(b, *faces.shape)
+    params, bbox, face_ok = pack_face_params(vertices, faces, colors, normals, poses, ks,
+                                             lighting, z_near)
+    return _render_dispatch(params, bbox, face_ok, image_size, binning,
+                            max_faces_per_tile=max_faces_per_tile)
 
 
 @torch.no_grad()
 def render_batch_tri(tri_pos, tri_col, tri_nrm, poses, ks,
                      image_size: tuple[int, int],
                      lighting: Lighting = FLAT_LIGHTING, z_near: float = 0.01,
+                     tile: tuple[int, int] = SORT_TILE, max_faces_per_tile: int = 512,
                      binning: str = "auto", spans: tuple[int, int] = (4, 2),
                      cull_dir=None):
     """Render corner-major meshes -> (rgb (B, H, W, 3), depth (B, H, W)).
 
     ``tri_*`` (B, 9, F); ``poses`` (B, 3, 4); ``ks`` (B, 3, 3);
     ``cull_dir`` (B,) ±1 back-face cull sign, 0 or None = two-sided.
-    ``binning``: "auto" | "cols" | "sort"; ``spans``: sort-binning (sy, sx)
-    tile spans.  rgb is an NHWC view of the kernels' NCHW output.
+    ``binning``: "auto" | "cols" | "sort" | "topk"; ``spans``: sort-binning
+    (sy, sx) tile spans; ``max_faces_per_tile``: the top-k route's cap.
+    rgb is an NHWC view of the kernels' NCHW output.
     """
+    check_tile(tile)
     params, bbox, face_ok = pack_tri_params(tri_pos, tri_col, tri_nrm, poses, ks,
                                             lighting, z_near, cull_dir)
-    return _render_dispatch(params, bbox, face_ok, image_size, binning, spans)
+    return _render_dispatch(params, bbox, face_ok, image_size, binning, spans,
+                            max_faces_per_tile)

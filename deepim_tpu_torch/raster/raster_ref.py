@@ -24,19 +24,29 @@ class Lighting(NamedTuple):
     """Gouraud lighting: color = albedo * (ambient + diffuse * |n·l|).
 
     ``direction`` points from the surface toward the light, camera frame.
+    Each field is a Python number (tuple) or a tensor (0-d for
+    ``ambient``/``diffuse``, (3,) for ``direction``), as drawn on the device
+    by ``data.synthetic.random_lighting``.
     """
 
-    ambient: float
-    diffuse: float
-    direction: tuple[float, float, float]
+    ambient: float | torch.Tensor
+    diffuse: float | torch.Tensor
+    direction: tuple[float, float, float] | torch.Tensor
 
 
 FLAT_LIGHTING = Lighting(ambient=1.0, diffuse=0.0, direction=(0.0, 0.0, -1.0))
 
 
 def light_direction(lighting: Lighting, like: torch.Tensor) -> torch.Tensor:
-    """Unit light direction (3,) with ``like``'s dtype and device."""
-    l = torch.tensor(lighting.direction, dtype=like.dtype, device=like.device)
+    """Unit light direction (3,) with ``like``'s dtype and device.
+
+    A tensor direction is normalised where it lies (no host copy).
+    """
+    d = lighting.direction
+    if isinstance(d, torch.Tensor):
+        l = d.to(dtype=like.dtype, device=like.device)
+    else:
+        l = torch.tensor(d, dtype=like.dtype, device=like.device)
     return l / torch.linalg.vector_norm(l).clamp_min(1e-8)
 
 

@@ -10,4 +10,5 @@ from deepim_tpu_torch.refine.refiner import (
     refine_poses,
     refine_step,
     render_crops,
+    render_scene,
 )

@@ -64,11 +64,8 @@ def test_symmetry_copies_bit_identical():
 
 
 def _assert_assets_equal(at, aj):
-    # The reference's extra fields are its texture atlas, unset when no
-    # mesh is textured (the port refuses textured meshes).
-    extra = set(aj._fields) - set(at._fields)
-    assert extra == {"tri_uv", "textures", "tex_idx"}
-    assert all(getattr(aj, f) is None for f in extra)
+    assert at._fields == aj._fields
+    assert at.textured == aj.textured
     for f in at._fields:
         x, y = getattr(at, f), getattr(aj, f)
         if f == "lod":
@@ -111,8 +108,53 @@ def test_build_assets_lod_equal():
 
 @pytest.mark.parametrize("textured", [[0], [0, 1]])
 def test_build_assets_refuses_textured_meshes(textured):
-    meshes = [mesh_t.box_mesh(), mesh_t.icosphere_mesh()]
+    # Textured meshes build (their atlas is ported); what is refused is
+    # use_textures=True on a set where no mesh has a texture.
+    plain = [mesh_t.box_mesh(), mesh_t.icosphere_mesh()]
+    with pytest.raises(ValueError, match="no mesh has a texture"):
+        build_assets_t(plain, num_points=64, use_textures=True)
+    meshes = list(plain)
     for i in textured:
         meshes[i] = mesh_j.texturize(meshes[i], seed=1)
-    with pytest.raises(NotImplementedError, match="textured"):
-        build_assets_t(meshes, num_points=64)
+    at = build_assets_t(meshes, num_points=64)
+    assert at.textured and at.textures.shape == (2, 64, 64, 3)
+    _assert_assets_equal(at, build_assets_j(meshes, num_points=64))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 11])
+def test_texture_helper_copies_bit_identical(seed):
+    np.testing.assert_array_equal(mesh_t.procedural_texture(seed),
+                                  mesh_j.procedural_texture(seed))
+    np.testing.assert_array_equal(mesh_t.procedural_texture(seed, (16, 40)),
+                                  mesh_j.procedural_texture(seed, (16, 40)))
+    m = mesh_t.torus_mesh()
+    for axis in range(3):
+        np.testing.assert_array_equal(mesh_t.planar_uv(m.vertices, axis),
+                                      mesh_j.planar_uv(m.vertices, axis))
+    _same_mesh(mesh_t.texturize(m, seed), mesh_j.texturize(m, seed))
+    uv = np.random.RandomState(seed).uniform(-0.2, 1.2, (50, 2)).astype(np.float32)
+    tex8 = (255 * mesh_t.procedural_texture(seed)).astype(np.uint8)  # 0-255 input
+    for tex in (mesh_t.procedural_texture(seed), tex8):
+        np.testing.assert_array_equal(mesh_t.bake_texture_to_vertices(uv, tex),
+                                      mesh_j.bake_texture_to_vertices(uv, tex))
+
+
+def _mixed_textured():
+    """Textured meshes of two texture sizes, one texture without UVs, and an
+    untextured mesh: every branch of ``_texture_fields``."""
+    box = mesh_t.texturize(mesh_t.box_mesh((0.08, 0.1, 0.06)), 1, size=(32, 48))
+    sphere = mesh_t.texturize(mesh_t.icosphere_mesh(0.05, subdivisions=3), 2)
+    no_uv = mesh_t.Mesh(*(getattr(box, f) for f in ("vertices", "faces", "colors",
+                                                    "normals")), texture=box.texture)
+    return [box, sphere, no_uv, mesh_t.torus_mesh()]
+
+
+@pytest.mark.parametrize("use_textures", [None, True, False])
+def test_build_assets_textured_fields_equal(use_textures):
+    meshes = _mixed_textured()
+    at = build_assets_t(meshes, num_points=100, use_textures=use_textures, lod_faces=300)
+    aj = build_assets_j(meshes, num_points=100, use_textures=use_textures, lod_faces=300)
+    assert at.textured == (use_textures is not False)
+    _assert_assets_equal(at, aj)
+    if at.textured:
+        assert at.lod.textures is at.textures  # the coarse level shares the atlas

@@ -25,6 +25,18 @@ def test_headline_assets_equal_bench_defaults():
     _assert_assets_equal(hl.headline_assets("cpu"), aj)
 
 
+def test_textured_headline_assets_equal_reference_atlas():
+    # Mesh i of the bench's four gets the 64x64 procedural texture of seed i.
+    meshes = [mesh_j.box_mesh((0.08, 0.1, 0.06)), mesh_j.icosphere_mesh(0.05, subdivisions=3),
+              mesh_j.cylinder_mesh(), mesh_j.torus_mesh()]
+    meshes = [mesh_j.texturize(m, seed=i, size=(64, 64)) for i, m in enumerate(meshes)]
+    aj = build_assets_j(meshes, sym_transforms=[rot_z_syms(2), None, None, rot_z_syms(8)],
+                        num_points=3000, lod_faces=1024)
+    at = hl.headline_assets("cpu", textured=True)
+    assert at.textured and at.textures.shape == (4, 64, 64, 3)
+    _assert_assets_equal(at, aj)
+
+
 @pytest.mark.parametrize("dense_sphere,route", [(True, "cols"), (False, "sort")])
 def test_headline_asset_sets_take_both_crop_routes(dense_sphere, route):
     assets = hl.headline_assets("cpu", dense_sphere=dense_sphere)

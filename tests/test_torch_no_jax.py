@@ -45,6 +45,12 @@ out = refine_poses(model, assets, torch.rand(2, 120, 160, 3, generator=g), init,
                    k.expand(2, 3, 3), torch.tensor([0, 1]), num_iters=2,
                    out_size=(32, 64), coarse_iters=1)
 assert out.shape == (2, 3, 4) and torch.isfinite(out).all()
+
+from deepim_tpu_torch.data import synthetic_occlusion_batch
+from deepim_tpu_torch.raster.mesh import texturize
+textured = build_assets([texturize(box_mesh(), seed=0), icosphere_mesh(0.05)], num_points=16)
+batch = synthetic_occlusion_batch(g, textured, 2, k, (32, 64))
+assert batch["obs_rgb"].shape == (2, 32, 64, 3) and torch.isfinite(batch["obs_rgb"]).all()
 leaked = [m for m, v in sys.modules.items()
           if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "deepim_tpu")]
 assert not leaked, leaked

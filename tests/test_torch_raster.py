@@ -5,6 +5,8 @@ tests run them; the port's wrappers take their plain PyTorch versions on
 CPU tensors.  Inputs are numpy, made from fixed seeds.
 """
 
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 from deepim_tpu.raster import raster_pallas as rp
 from deepim_tpu.raster import raster_xla
 from deepim_tpu.raster.mesh import box_mesh, cylinder_mesh, icosphere_mesh, torus_mesh
+from deepim_tpu_torch.raster import mesh as mesh_t
 from deepim_tpu_torch.raster import raster_cuda as rc
 from deepim_tpu_torch.raster import raster_ref
 from deepim_tpu_torch.raster.mesh import cull_direction
@@ -208,22 +211,156 @@ def test_wrappers_dispatch_by_device():
     assert rgb.shape == (1, 3, 16, 16) and not depth.any()
     rgb, depth = rc.raster_sorted(params, *rc.bin_faces_sorted(bbox, ok, (16, 16)), 16, 16)
     assert rgb.shape == (1, 3, 16, 16) and not depth.any()
-    assert rc.LAUNCHES == {"raster_cols": 0, "raster_sorted": 0, "cols_fallback": 0}
+    rgb, depth = rc.raster_topk(params, *rc.bin_faces_topk(bbox, ok, (16, 16), 4), 16, 16)
+    assert rgb.shape == (1, 3, 16, 16) and not depth.any()
+    assert rc.LAUNCHES == {"raster_cols": 0, "raster_sorted": 0, "raster_topk": 0,
+                           "cols_fallback": 0}
     meta = [t.to("meta") for t in (params, *rc.bin_faces_packed(bbox, ok, (16, 16)))]
     with pytest.raises(ValueError):
         rc.raster_cols(*meta, 16, 16)
+    meta = [t.to("meta") for t in (params, *rc.bin_faces_topk(bbox, ok, (16, 16), 4))]
+    with pytest.raises(ValueError):
+        rc.raster_topk(*meta, 16, 16)
 
 
 def test_dispatch_refuses_unported_routes():
+    # Every reference route is ported; an unknown binning, or a tile the
+    # CUDA kernels are not built for, is refused.
     params = torch.zeros((1, 8, 24))
     bbox = torch.zeros((1, 8, 4))
     ok = torch.ones((1, 8), dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        rc._render_dispatch(params, bbox, ok, (16, 16), "topk")
-    big = rc._FACE_CHUNK + 1
-    with pytest.raises(NotImplementedError):
-        rc._render_dispatch(torch.zeros((1, big, 24)), torch.zeros((1, big, 4)),
-                            torch.ones((1, big), dtype=torch.bool), (16, 16), "auto")
+    with pytest.raises(ValueError, match="binning"):
+        rc._render_dispatch(params, bbox, ok, (16, 16), "bogus")
+    tri = [torch.zeros((1, 9, 4)) for _ in range(3)]
+    pose = torch.from_numpy(_poses(1, 0))
+    with pytest.raises(ValueError, match="binning"):
+        rc.render_batch_tri(*tri, pose, torch.from_numpy(K[None]), (16, 16), binning="top_k")
+    with pytest.raises(ValueError, match="tile"):
+        rc.render_batch_tri(*tri, pose, torch.from_numpy(K[None]), (16, 16), tile=(16, 128))
+
+
+def test_light_direction_takes_tensors():
+    # A Lighting whose fields are tensors (as random_lighting draws them on
+    # the device) packs like the tuple-valued one, and like the reference's
+    # array-valued Lighting.
+    mesh, seed, cull = CASES[0]
+    poses = _poses(2, seed, 0.45)
+    tri = _tri(mesh, 2)
+    ks = np.broadcast_to(K, (2, 3, 3)).copy()
+    amb, dif, d = LIT
+    lit_t = raster_ref.Lighting(torch.tensor(amb), torch.tensor(dif), torch.tensor(d))
+    args = [torch.from_numpy(a) for a in (*tri, poses, ks)]
+    got = rc.pack_tri_params(*args, lit_t, 0.01)
+    want = rc.pack_tri_params(*args, _lighting(False), 0.01)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    (pj, _, _), _ = _pack_both(mesh, poses, False)
+    scale = np.abs(pj).max(axis=(0, 1), keepdims=True) + 1e-6
+    np.testing.assert_allclose(got[0].numpy() / scale, pj / scale, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cap", [8, 512])
+@pytest.mark.parametrize("mesh,seed,cull", CASES)
+def test_topk_binning_equal_as_integers(mesh, seed, cull, cap):
+    # Counts equal; each tile's first `count` ids equal (the rest is never
+    # walked, so its content is free).
+    (_, bbox, ok), _ = _pack_both(mesh, _poses(2, seed, 0.45), cull)
+    k = min(cap, mesh.num_faces)
+    ref_l, ref_c = jax.vmap(lambda bb, o: rp.bin_faces(bb, o, (H, W), (32, 256), k))(
+        jnp.asarray(bbox), jnp.asarray(ok))
+    lists, counts = rc.bin_faces_topk(torch.from_numpy(bbox), torch.from_numpy(ok), (H, W), cap)
+    assert lists.dtype == counts.dtype == torch.int32
+    ref_l = np.asarray(ref_l).reshape(lists.shape)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(ref_c).reshape(counts.shape))
+    head = np.arange(k) < counts.numpy()[..., None]
+    np.testing.assert_array_equal(np.where(head, lists.numpy(), -1), np.where(head, ref_l, -1))
+    if cap == 8:
+        assert (counts.numpy() == 8).any()  # some tiles drop faces
+
+
+@pytest.mark.parametrize("mesh,seed,cull,cap", [(*CASES[0], 48), (*CASES[1], 120)])
+def test_topk_plain_matches_interpret_with_drops(mesh, seed, cull, cap):
+    # At 64x128 there are two 32x256 tiles, each crossed by more than `cap`
+    # faces (64-83 for the sphere, 138-160 for the torus): the cap drops
+    # faces, and both packages drop the same.
+    poses = _poses(2, seed, 0.45)
+    tri = _tri(mesh, 2)
+    ks = np.broadcast_to(K, (2, 3, 3)).copy()
+    cd = np.full((2,), cull_direction(mesh) if cull else 0.0, np.float32)
+    with pytest.warns(RuntimeWarning, match="DROPS"):
+        rgb_j, d_j = rp.render_batch_tri(*map(jnp.asarray, (*tri, poses, ks)), (H, W),
+                                         lighting=_lighting(True), interpret=True,
+                                         binning="topk", max_faces_per_tile=cap,
+                                         cull_dir=jnp.asarray(cd))
+    args = [torch.from_numpy(a) for a in (*tri, poses, ks)]
+    rc.reset_launches()
+    with pytest.warns(RuntimeWarning, match="DROPS"):
+        rgb_t, d_t = rc.render_batch_tri(*args, (H, W), lighting=_lighting(False),
+                                         binning="topk", max_faces_per_tile=cap,
+                                         cull_dir=torch.from_numpy(cd))
+    assert rc.LAUNCHES["raster_topk"] == 0  # CPU: the plain version
+    _compare(rgb_t.numpy(), d_t.numpy(), rgb_j, d_j)
+    _, d_full = rc.render_batch_tri(*args, (H, W), lighting=_lighting(False),
+                                    binning="sort", cull_dir=torch.from_numpy(cd))
+    assert ((d_full.numpy() > 0) & (d_t.numpy() == 0)).any()  # the drops leave holes
+
+
+@pytest.mark.parametrize("binning", ["auto", "cols", "sort", "topk"])
+def test_chunked_dispatch_matches_reference(monkeypatch, binning):
+    # Chunks of 500 faces over a 1,280-face sphere: 500 + 500 + 280, each
+    # chunk picking its own "auto" route (cols from 400 faces here), then
+    # z-merged in order.  Both modules are patched alike.
+    for mod in (rc, rp):
+        monkeypatch.setattr(mod, "_FACE_CHUNK", 500)
+        monkeypatch.setattr(mod, "_COLS_MIN_FACES", 400)
+    mesh = icosphere_mesh(radius=0.08, subdivisions=3)
+    (pj, bj, okj), (pt, bt, okt) = _pack_both(mesh, _poses(2, 4, 0.45), True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the top-k route warns
+        rgb_j, d_j = rp._render_dispatch(*map(jnp.asarray, (pj, bj, okj)), (H, W),
+                                         (32, 256), 64, True, binning)
+        rc.reset_launches()
+        rgb_t, d_t = rc._render_dispatch(*map(torch.from_numpy, (pt, bt, okt)), (H, W),
+                                         binning, max_faces_per_tile=64)
+    assert d_t.shape == (2, H, W)
+    _compare(rgb_t.numpy(), d_t.numpy(), rgb_j, d_j)
+
+
+def test_zmerge_earlier_chunk_wins_ties():
+    d_a = torch.tensor([[[0.0, 0.5, 0.5, 0.7]]])
+    d_b = torch.tensor([[[0.3, 0.5, 0.0, 0.6]]])
+    rgb_a, rgb_b = torch.zeros((1, 3, 1, 4)), torch.ones((1, 3, 1, 4))
+    rgb, d = rc._zmerge_nchw((rgb_a, d_a), (rgb_b, d_b))
+    torch.testing.assert_close(d, torch.tensor([[[0.3, 0.5, 0.5, 0.6]]]))
+    torch.testing.assert_close(rgb[0, 0, 0], torch.tensor([1.0, 0.0, 0.0, 1.0]))
+
+
+def _two_meshes_padded():
+    a = mesh_t.pad_mesh(mesh_t.torus_mesh(), 300, 600)
+    b = mesh_t.pad_mesh(mesh_t.icosphere_mesh(0.06, subdivisions=2), 300, 600)
+    return a, b
+
+
+@pytest.mark.parametrize("layout", ["shared", "per_sample_vertices", "per_sample_faces"])
+def test_render_batch_layouts_match(layout):
+    # The vertex+faces entry point for its three mesh layouts.
+    a, b = _two_meshes_padded()
+    poses = _poses(2, 7, 0.45)
+    ks = np.broadcast_to(K, (2, 3, 3)).copy()
+    if layout == "shared":
+        arrays = (a.vertices, a.faces, a.colors, a.normals)
+    elif layout == "per_sample_vertices":
+        arrays = (np.stack([a.vertices, 1.2 * a.vertices]), a.faces,
+                  np.stack([a.colors, a.colors[:, ::-1]]), np.stack([a.normals] * 2))
+    else:
+        arrays = tuple(np.stack([getattr(m, f) for m in (a, b)])
+                       for f in ("vertices", "faces", "colors", "normals"))
+    rgb_j, d_j = rp.render_batch(*map(jnp.asarray, (*arrays, poses, ks)), (H, W),
+                                 lighting=_lighting(True), interpret=True)
+    rgb_t, d_t = rc.render_batch(*map(torch.from_numpy, (*arrays, poses, ks)), (H, W),
+                                 lighting=_lighting(False))
+    assert rgb_t.shape == (2, H, W, 3)
+    _compare(rgb_t.numpy(), d_t.numpy(), rgb_j, d_j)
 
 
 @pytest.mark.parametrize("mesh,seed,cull", CASES)

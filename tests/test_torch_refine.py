@@ -128,8 +128,21 @@ def test_build_network_inputs_match():
 
 
 def test_textured_assets_refuse_to_render():
-    # Refused when the assets are built, so no textured set reaches
-    # render_crops' untextured kernels.
+    # Textured sets render through the deferred-texture pass (their
+    # trajectories: tests/test_torch_textured.py).  Refused: texturing a set
+    # with no texture.  use_textures=False bakes colours into the plain path.
     meshes = [mesh_j.texturize(mesh_j.box_mesh(), seed=1), mesh_j.torus_mesh()]
-    with pytest.raises(NotImplementedError, match="deferred-texture"):
-        ref_t.build_assets(meshes, num_points=16)
+    with pytest.raises(ValueError, match="no mesh has a texture"):
+        ref_t.build_assets([mesh_j.torus_mesh()], num_points=16, use_textures=True)
+    init = torch.from_numpy(_inputs(seed=7)[0])
+    ks = torch.tensor([[60.0, 0, OUT[1] / 2], [0, 60.0, OUT[0] / 2], [0, 0, 1]]).expand(B, 3, 3)
+    cls = torch.tensor([0, 1, 0])
+    crops = {}
+    for use in (True, False):
+        assets = ref_t.build_assets(meshes, num_points=16, use_textures=use)
+        assert assets.textured == use
+        crops[use] = ref_t.render_crops(ref_t.gather_class(assets, cls), init, ks, OUT)
+    for rgb, depth in crops.values():
+        assert rgb.shape == (B, *OUT, 3) and (depth > 0).any()
+    torch.testing.assert_close(crops[True][1], crops[False][1], rtol=0, atol=0)
+    assert not torch.equal(crops[True][0], crops[False][0])
