@@ -15,12 +15,20 @@ Phases, one line each (any failure raises and the script exits nonzero):
    main path gives them, at 480x640 and 240x320 with B=128: the cols
    kernel on the headline's 1,280 faces; the sorted kernel on the cols
    path's fallback binning and on the sort route of sub-1,024-face assets
-   (spans (8, 3), whose global list must be nonempty at 480x640); then a
-   mesh that overflows the cols kernel's global list into the sorted
-   fallback.  Kernel and plain version must agree bit for bit
-   (max_abs_err 0); the mismatch fractions at the repo's raster tolerance
-   are printed beside it, and both are timed (CUDA events, warmed, in
-   turns).
+   (spans (8, 3), whose global list must be nonempty at 480x640), and at
+   240x320 on the decimated level (``lod_faces=1024``) of classes padded
+   to 4,096 faces (the coarse iterations of real-size assets); then a mesh that overflows the
+   cols kernel's global list into the sorted fallback.  Kernel and plain
+   version must agree bit for bit (max_abs_err 0); the mismatch fractions
+   at the repo's raster tolerance are printed beside it, and both are
+   timed (CUDA events, warmed, in turns).  Each line carries the call's
+   bound: the bytes it must move (the id entries it walks, 48 B of
+   coverage and depth planes for each listed face and 36 B of colour
+   planes for each face that wins a pixel, read once; 16 B a pixel
+   written once) at 3.35 TB/s against its plane work (16 fp32 operations
+   per pixel centre inside a listed face's bbox) at 67 TFLOP/s, the
+   larger of the two, and its share of the measured time; the sorted
+   kernel's lines carry its ptxas registers and spills.
 4. Slice parity: ``refine_poses`` on the card (kernels) against the same
    call on the CPU (plain versions), float32, TF32 off, B=8.
 5. Main path: ``refine_poses`` at the headline protocol (B=128, K=4: 2
@@ -52,7 +60,9 @@ Phases, one line each (any failure raises and the script exits nonzero):
    (raster tolerance), ``refine_poses`` on the textured headline assets
    (atol 1e-3).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each kernel's
+launches on the main paths, its time, plain time and bound at 480x640,
+``library_ms`` null: no single PyTorch call rasterizes); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 next to it, the script exits nonzero and prints no result.
 """
@@ -77,6 +87,14 @@ PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
 RGB_ATOL, DEPTH_ATOL = 2e-2, 1e-3  # the repo's raster tolerance, printed beside
 RASTER_FRAC = 0.002  # card-vs-CPU renders: at most this share of elements off
 TOPK_CAP = 512  # the reference's default max_faces_per_tile
+# Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes/s and
+# fp32 operations/s outside the tensor cores.  A face's plane work at one
+# pixel is 4 planes x (2 mul + 2 add).
+HBM_BYTES_PER_S, FP32_OPS_PER_S, OPS_PER_PAIR = 3.35e12, 67e12, 16
+# Bytes of a face's planes (raster_cuda.py §_plane_pack): three
+# barycentrics and the inverse depth, to test it at a pixel; three colour
+# numerators, read only where it wins.
+TEST_BYTES, COLOUR_BYTES = 48, 36
 
 
 def log(phase: str, **fields) -> None:
@@ -93,24 +111,26 @@ def mismatch(a, b):
     return rgb, dep, err
 
 
+def ms_per_call(fn, reps):
+    """Mean ms of ``reps`` back-to-back calls of ``fn``, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def time_in_turns(kernel, plain, reps_kernel=20, reps_plain=3):
     """ms per call of each, timed with CUDA events in the order plain,
     kernel, kernel, plain after one warm call each."""
-    def run(fn, reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
     kernel(), plain()
-    p1 = run(plain, reps_plain)
-    k1 = run(kernel, reps_kernel)
-    k2 = run(kernel, reps_kernel)
-    p2 = run(plain, reps_plain)
+    p1 = ms_per_call(plain, reps_plain)
+    k1 = ms_per_call(kernel, reps_kernel)
+    k2 = ms_per_call(kernel, reps_kernel)
+    p2 = ms_per_call(plain, reps_plain)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -125,22 +145,154 @@ def peak_memory(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def compare(name, kern, plain, args, min_covered=0.05, reps=(20, 3), **fields):
+KERNEL_NAMES = ("raster_cols_kernel", "raster_sorted_kernel", "raster_topk_kernel")
+PTXAS: dict[str, str] = {}  # filled from the build's log by main()
+
+
+def ptxas_summary(log_text: str) -> dict[str, str]:
+    """Registers and spills of each kernel in ``nvcc -Xptxas -v`` output,
+    keyed by the kernel's (unmangled) name."""
+    out, current = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            current = next((k for k in KERNEL_NAMES if k in line), None)
+        elif current and ("spill stores" in line or "registers" in line):
+            part = line.split(":", 1)[-1].strip()
+            out[current] = f"{out[current]}; {part}" if current in out else part
+    return out
+
+
+def _centres(lo, hi, a, b):
+    """How many pixel centres c + 0.5, for integer c in [a, b), lie in
+    [lo, hi] (elementwise, float64)."""
+    first = torch.maximum(torch.ceil(lo - 0.5), a)
+    last = torch.minimum(torch.floor(hi - 0.5), b - 1)
+    return (last - first + 1).clamp_min(0)
+
+
+def _pairs(bbox, ids, valid, ox, oy, rw, rh, h, w):
+    """Pixel centres inside each listed face's bbox and its region
+    [ox, ox+rw) x [oy, oy+rh) clipped to the image, summed.  ``ids``,
+    ``valid``, ``ox``, ``oy`` are (B, N)."""
+    bb = torch.gather(bbox.double(), 1, ids.long().clamp_min(0)[..., None].expand(-1, -1, 4))
+    ox, oy = ox.double(), oy.double()
+    nx = _centres(bb[..., 0], bb[..., 1], ox, torch.clamp(ox + rw, max=w))
+    ny = _centres(bb[..., 2], bb[..., 3], oy, torch.clamp(oy + rh, max=h))
+    return float((nx * ny * valid).sum())
+
+
+def _range_entries(starts, n):
+    """Region index of each of n entries of a sorted id array whose regions
+    start at ``starts`` (B, R+1), and whether the entry lies in a region."""
+    idx = torch.arange(n, device=starts.device).expand(starts.shape[0], n).contiguous()
+    region = torch.searchsorted(starts.long().contiguous(), idx, right=True) - 1
+    return region.clamp(0, starts.shape[1] - 2), idx < starts[:, -1:]
+
+
+def _mark(listed, ids, ok):
+    """Mark in ``listed`` (B, F) the faces of the walked entries ``ids[ok]``
+    (both (B, N)); returns how many entries are walked."""
+    rows = torch.arange(ids.shape[0], device=ids.device)[:, None].expand_as(ids)
+    listed[rows[ok], ids[ok].long()] = True
+    return int(ok.sum())
+
+
+def winning_faces(kern, args):
+    """How many faces win at least one pixel, summed over the batch: the
+    call again with each face's colour planes (params 12-20) set to the
+    constant id + 1, read back as rgb / depth (exact: both carry the
+    pixel's same 1 / z)."""
+    params, *rest = args
+    b, f = params.shape[:2]
+    coded = params.clone()
+    coded[..., 12:21] = 0.0
+    coded[..., 14] = torch.arange(1, f + 1, dtype=params.dtype, device=params.device)
+    rgb, depth = kern(coded, *rest)
+    ids = torch.where(depth > 0, torch.round(rgb[:, 0] / depth.clamp_min(1e-30)), 0.0)
+    seen = torch.zeros((b, f + 1), dtype=torch.bool, device=params.device)
+    seen.scatter_(1, ids.long().reshape(b, -1), True)
+    return int(seen[:, 1:].sum())
+
+
+def work(name, args, bbox, n_winners):
+    """What one kernel call must do.  ``bytes``: the id entries it walks
+    and the range arrays that delimit them, the coverage and depth planes
+    of each face listed somewhere, the colour planes of the ``n_winners``
+    faces that win a pixel, each read once, and the outputs (16 B a pixel)
+    written once.  ``pairs``: (pixel centre, listed face) with the centre
+    inside the face's bbox, the region the face is listed for (tile,
+    sub-tile, column or the whole image) and the image."""
+    params, *ints, h, w = args
+    b = params.shape[0]
+    listed = torch.zeros(params.shape[:2], dtype=torch.bool, device=params.device)
+    if name == "raster_sorted":
+        vals, starts, glob = ints
+        tx = -(-w // 256)
+        t, ok = _range_entries(starts, vals.shape[1])
+        pairs = _pairs(bbox, vals, ok, (t % tx) * 256, (t // tx) * 32, 256, 32, h, w)
+        g = glob[:, 1:]
+        gok = torch.arange(g.shape[1], device=g.device) < glob[:, :1]
+        zero = torch.zeros_like(g)
+        pairs += _pairs(bbox, g, gok, zero, zero, w, h, h, w)
+        entries = _mark(listed, vals, ok) + _mark(listed, g, gok) + starts.numel() + b
+    elif name == "raster_cols":
+        face_ids, starts, glob_col = ints
+        n_subs, n_cols = -(-h // 8), -(-w // 128)
+        t, ok = _range_entries(starts, face_ids.shape[1])
+        pairs = _pairs(bbox, face_ids, ok, (t // n_subs) * 128, (t % n_subs) * 8, 128, 8, h, w)
+        gstarts, gids = glob_col[:, :n_cols + 1], glob_col[:, n_cols + 1:-9]
+        c, gok = _range_entries(gstarts, gids.shape[1])
+        pairs += _pairs(bbox, gids, gok, c * 128, torch.zeros_like(c), 128, h, h, w)
+        entries = (_mark(listed, face_ids, ok) + _mark(listed, gids, gok) + starts.numel()
+                   + gstarts.numel())
+    else:  # raster_topk
+        lists, counts = ints
+        tx = -(-w // 256)
+        n_t, k = lists.shape[1], lists.shape[2]
+        t = torch.arange(n_t, device=lists.device).repeat_interleave(k).expand(b, -1)
+        ok = (torch.arange(k, device=lists.device) < counts[..., None]).reshape(b, -1)
+        pairs = _pairs(bbox, lists.reshape(b, -1), ok, (t % tx) * 256, (t // tx) * 32,
+                       256, 32, h, w)
+        entries = _mark(listed, lists.reshape(b, -1), ok) + counts.numel()
+    n_listed = int(listed.sum())
+    nbytes = (4 * entries + TEST_BYTES * n_listed + COLOUR_BYTES * n_winners
+              + b * h * w * 16)
+    return {"bytes": nbytes, "pairs": pairs, "listed_faces": n_listed,
+            "winning_faces": n_winners}
+
+
+def bound(name, args, bbox, n_winners):
+    """The least time the card could take for one call: the larger of its
+    bytes over the memory rate and its plane work over the fp32 rate."""
+    out = work(name, args, bbox, n_winners)
+    t_bytes = out["bytes"] / HBM_BYTES_PER_S
+    t_ops = OPS_PER_PAIR * out["pairs"] / FP32_OPS_PER_S
+    return {**out, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def compare(name, kern, plain, args, bbox, min_covered=0.05, reps=(20, 3), **fields):
     """Kernel against its plain version on the same inputs, timed (``reps``
-    calls of each per turn).  The two evaluate every plane with the same
-    rounded operations, so they must agree bit for bit (max_abs_err 0)."""
+    calls of each per turn), beside its bound (``bbox`` is the faces'
+    screen bbox, for the plane work).  The two evaluate every plane with
+    the same rounded operations, so they must agree bit for bit
+    (max_abs_err 0)."""
     out_k = kern(*args)
     torch.cuda.synchronize()
     out_p = plain(*args)
     frac_rgb, frac_d, err = mismatch(out_k, out_p)
     ms, plain_ms = time_in_turns(lambda: kern(*args), lambda: plain(*args), *reps)
     covered = (out_p[1] > 0).float().mean().item()
+    b = bound(name, args, bbox, winning_faces(kern, args))
+    b["bound_share"] = b["bound_ms"] / ms if ms > 0 else None
+    extra = {"ptxas": repr(PTXAS.get(f"{name}_kernel", "no nvcc log"))} \
+        if name == "raster_sorted" else {}
     log("kernels", kernel=name, **fields, batch=args[0].shape[0], faces=args[0].shape[1],
         rgb_mismatch=frac_rgb, depth_mismatch=frac_d, max_abs_err=err,
-        covered=covered, ms=ms, plain_ms=plain_ms)
+        covered=covered, ms=ms, plain_ms=plain_ms, **b, **extra)
     if err != 0.0 or covered < min_covered:
         raise AssertionError(f"{name} {fields} disagrees with its plain version")
-    return {**fields, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {**fields, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
@@ -150,7 +302,7 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     overflows the cols kernel's global list."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.ops.zoom import compute_zoom_box, zoom_intrinsics
-    from deepim_tpu_torch.refine import gather_class
+    from deepim_tpu_torch.refine import build_assets, gather_class
 
     record = {"raster_cols": [], "raster_sorted": []}
     for size in (hl.SIZE, hl.COARSE):
@@ -169,7 +321,7 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
                 n_glob = int(binned[2][:, 0].max())
                 record["raster_sorted"].append(compare(
                     "raster_sorted", rc.raster_sorted, rc.raster_sorted_ref,
-                    (params, *binned, h, w), case="sort_route", size=tag,
+                    (params, *binned, h, w), bbox, case="sort_route", size=tag,
                     global_faces_max=n_glob))
                 if size == hl.SIZE and n_glob == 0:
                     raise AssertionError("the sort route's global list is empty: "
@@ -177,14 +329,31 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
                 continue
             record["raster_cols"].append(compare(
                 "raster_cols", rc.raster_cols, rc.raster_cols_ref,
-                (params, *rc.bin_faces_packed(bbox, ok, size), h, w),
+                (params, *rc.bin_faces_packed(bbox, ok, size), h, w), bbox,
                 case="cols_route", size=tag))
             # The cols path's fallback binning: spans over the whole grid.
             record["raster_sorted"].append(compare(
                 "raster_sorted", rc.raster_sorted, rc.raster_sorted_ref,
                 (params, *rc.bin_faces_sorted(bbox, ok, size, sy_span=-(-h // 32),
-                                              sx_span=-(-w // 256)), h, w),
+                                              sx_span=-(-w // 256)), h, w), bbox,
                 case="fallback_binning", size=tag))
+
+    # The coarse iterations of 4,096-face assets: the crop route at 240x320
+    # on their decimated level (lod_faces=1024, under the cols crossover).
+    lod = build_assets(dense_meshes(), sym_transforms=hl.headline_meshes()[1],
+                       num_points=300, lod_faces=hl.LOD_FACES, device=dev).lod
+    ab = gather_class(lod, cls)
+    h, w = hl.COARSE
+    kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, hl.COARSE))
+    params, bbox, ok = rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm, init, kz,
+                                          rc.FLAT_LIGHTING, 0.01, ab.cull_dir)
+    if params.shape[1] >= rc._COLS_MIN_FACES_CROP:
+        raise AssertionError(f"the LOD has {params.shape[1]} faces: not the sort route")
+    binned = rc.bin_faces_sorted(bbox, ok, hl.COARSE, sy_span=8, sx_span=3)
+    record["raster_sorted"].append(compare(
+        "raster_sorted", rc.raster_sorted, rc.raster_sorted_ref, (params, *binned, h, w),
+        bbox, case="sort_route_lod", size=f"{h}x{w}",
+        global_faces_max=int(binned[2][:, 0].max())))
 
     # A mesh with more big faces than the cols global cap: the cols route
     # must fall back to the sorted kernel and agree with the plain path.
@@ -277,10 +446,22 @@ def phase_topk_kernel(dev, assets, init, ks, cls, rc):
             lists, counts = rc.bin_faces_topk(bbox, ok, size, TOPK_CAP)
             records.append(compare(
                 "raster_topk", rc.raster_topk, rc.raster_topk_ref, (params, lists, counts, h, w),
-                min_covered=min_covered, case=case, size=f"{h}x{w}", tiles=counts.numel(),
+                bbox, min_covered=min_covered, case=case, size=f"{h}x{w}", tiles=counts.numel(),
                 tiles_at_cap=int((counts == lists.shape[2]).sum()),
                 max_count=int(counts.max())))
     return records
+
+
+def dense_meshes():
+    """The headline classes padded to 4,096 faces: the torus at 64x32
+    segments (4,096 faces) and the cylinder with 4 rings (its side faces
+    ~3 cm, under the cols kernel's span, so no chunk overflows into the
+    sorted fallback)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.raster.mesh import cylinder_mesh, torus_mesh
+
+    meshes = hl.headline_meshes()[0]
+    return [meshes[0], meshes[1], cylinder_mesh(rows=4), torus_mesh(n_major=64, n_minor=32)]
 
 
 def synthesis_assets(dev, assets, tex_assets):
@@ -288,15 +469,11 @@ def synthesis_assets(dev, assets, tex_assets):
     launches): the headline assets, their textured variant, and classes
     padded to 4,096 faces."""
     from deepim_tpu_torch import headline as hl
-    from deepim_tpu_torch.raster.mesh import cylinder_mesh, torus_mesh
     from deepim_tpu_torch.refine import build_assets
 
     one_each = {"raster_cols": 1, "raster_sorted": 1, "raster_topk": 0, "cols_fallback": 0}
-    meshes, syms = hl.headline_meshes()
-    # Classes padded to 4,096 faces: the torus at 64x32 segments (4,096
-    # faces) and the cylinder with 4 rings (its side faces ~3 cm, under the
-    # cols kernel's span, so no chunk overflows into the sorted fallback).
-    dense = [meshes[0], meshes[1], cylinder_mesh(rows=4), torus_mesh(n_major=64, n_minor=32)]
+    syms = hl.headline_meshes()[1]
+    dense = dense_meshes()
     return [
         ("untextured", assets, 2, one_each),
         ("textured", tex_assets, 2, one_each),
@@ -310,14 +487,19 @@ def synthesis_assets(dev, assets, tex_assets):
 @contextlib.contextmanager
 def captured_inputs(rc):
     """Record the inputs of every raster_cols/raster_sorted call made inside
-    the block as (name, args); the calls themselves run as usual."""
-    calls = []
-    saved = {n: getattr(rc, n) for n in ("raster_cols", "raster_sorted")}
+    the block as (name, args, bbox), ``bbox`` being the one its binning
+    was given; the calls themselves run as usual."""
+    calls, binned = [], [None]
+    names = ("raster_cols", "raster_sorted", "bin_faces_packed", "bin_faces_sorted")
+    saved = {n: getattr(rc, n) for n in names}
 
     def recording(name, fn):
-        def wrapped(*args):
-            calls.append((name, args))
-            return fn(*args)
+        def wrapped(*args, **kwargs):
+            if name.startswith("bin_"):
+                binned[0] = args[0]
+            else:
+                calls.append((name, args, binned[0]))
+            return fn(*args, **kwargs)
         return wrapped
 
     for n, fn in saved.items():
@@ -375,10 +557,10 @@ def phase_synthesis(dev, card, rc, runs, record):
             raise AssertionError(f"synthesis {name}: {len(calls)} kernel calls recorded")
         # The scene's sorted call or cols chunks in order, then the target's
         # depth; timed with fewer calls, the plain versions take seconds.
-        for i, (kname, args) in enumerate(calls):
+        for i, (kname, args, bbox) in enumerate(calls):
             plain = rc.raster_cols_ref if kname == "raster_cols" else rc.raster_sorted_ref
             record[kname].append(compare(
-                kname, getattr(rc, kname), plain, args, min_covered=1e-3, reps=(5, 1),
+                kname, getattr(rc, kname), plain, args, bbox, min_covered=1e-3, reps=(5, 1),
                 case=f"synthesis_{name}", call=i, size=f"{hl.SIZE[0]}x{hl.SIZE[1]}"))
         del calls
     return counts
@@ -502,9 +684,7 @@ def main() -> int:
     _build.load()
     log("build", seconds=time.perf_counter() - t0, nvcc_seconds=info.seconds,
         library=info.path.name)
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print("  " + line.strip(), flush=True)
+    PTXAS.update(ptxas_summary(info.log))
 
     kernels = run_phases(dev, card)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -604,7 +784,12 @@ def run_phases(dev, card: str) -> list[dict]:
             "launches_by_run": by_run,
             "max_abs_err": max(r["max_abs_err"] for r in record[kname]),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_share": main["bound_share"],
+            # No single PyTorch call rasterizes binned face lists.
+            "library_ms": None,
             "timed_case": f"{timed_case} 480x640",
+            "ptxas": PTXAS.get(f"{kname}_kernel", "no nvcc log"),
         })
     for k in kernels:
         if k["launches"] < 1:

@@ -33,7 +33,7 @@ def sample_poses_in_frustum(generator: torch.Generator, n: int, k: torch.Tensor,
     ``z_range``.
     """
     h, w = image_size
-    r = quat2mat(random_quat(generator, (n,), device=generator.device))
+    r = quat2mat(random_quat(generator, (n,)))
     z = _uniform(generator, n, *z_range)
     u = _uniform(generator, n, border_frac * w, (1 - border_frac) * w)
     v = _uniform(generator, n, border_frac * h, (1 - border_frac) * h)

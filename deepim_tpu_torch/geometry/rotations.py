@@ -87,12 +87,9 @@ def euler2quat(ax: torch.Tensor, ay: torch.Tensor, az: torch.Tensor) -> torch.Te
     return mat2quat(euler2mat(ax, ay, az))
 
 
-def random_quat(generator: torch.Generator, shape: tuple = (),
-                device: torch.device | str = "cpu") -> torch.Tensor:
-    """Uniform random unit quaternion(s) with w >= 0 (shape + (4,)).
-
-    Draws from ``generator``, which must live on ``device``.
-    """
-    q = torch.randn(shape + (4,), generator=generator, device=device)
+def random_quat(generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
+    """Uniform random unit quaternion(s) with w >= 0 (shape + (4,)), drawn
+    from ``generator`` on its own device."""
+    q = torch.randn(shape + (4,), generator=generator, device=generator.device)
     q = quat_normalize(q)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 
-def make_intrinsics(fx, fy, cx, cy, device: torch.device | str = "cpu") -> torch.Tensor:
+def make_intrinsics(fx, fy, cx, cy, device: torch.device | str = "cuda") -> torch.Tensor:
     """Build a float32 3x3 K from scalars on ``device``."""
     return torch.tensor(
         [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]],

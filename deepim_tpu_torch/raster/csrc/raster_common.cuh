@@ -35,7 +35,8 @@ struct Pixels {
 // coalesced float4 reads, then every thread walks them with broadcast
 // shared-memory reads.  s and e must be the same for the whole block (the
 // walk synchronises it).  Strict '>' keeps the first face, in list order,
-// with the largest inverse depth.
+// with the largest inverse depth.  The cols and top-k kernels walk this
+// way; the sorted kernel has its own per-warp culled walk.
 template <int R>
 __device__ void walk(const float4* __restrict__ params, const int* __restrict__ ids,
                      int s, int e, float4* stage, float px, int row0, int rstep,

@@ -86,7 +86,7 @@ class RenderAssets(NamedTuple):
 
 def build_assets(meshes, sym_transforms=None, num_points: int = 3000,
                  use_textures: bool | None = None, lod_faces: int | None = None,
-                 device: torch.device | str = "cpu") -> RenderAssets:
+                 device: torch.device | str = "cuda") -> RenderAssets:
     """Stack host meshes into a RenderAssets on ``device``, padded to the
     set's largest vertex, face and symmetry counts.
 

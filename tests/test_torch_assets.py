@@ -4,8 +4,11 @@ The copies must stay bit-identical to the originals; every build_assets
 field (the nested coarse lod included) must be equal.
 """
 
+import inspect
+
 import numpy as np
 import pytest
+import torch
 
 from deepim_tpu.geometry import symmetry as sym_j
 from deepim_tpu.raster import mesh as mesh_j
@@ -91,7 +94,7 @@ def _headline(icosphere_subdiv=3):
 
 def test_build_assets_fields_equal():
     meshes, syms = _headline()
-    at = build_assets_t(meshes, sym_transforms=syms, num_points=300, lod_faces=1024)
+    at = build_assets_t(meshes, sym_transforms=syms, num_points=300, lod_faces=1024, device="cpu")
     aj = build_assets_j(meshes, sym_transforms=syms, num_points=300, lod_faces=1024)
     assert at.lod is None  # 1,280 faces < 2 x 1,024: no coarse level
     assert at.tri_pos.shape == (4, 9, 1280)
@@ -100,7 +103,7 @@ def test_build_assets_fields_equal():
 
 def test_build_assets_lod_equal():
     meshes, syms = _headline()
-    at = build_assets_t(meshes, sym_transforms=syms, num_points=200, lod_faces=300)
+    at = build_assets_t(meshes, sym_transforms=syms, num_points=200, lod_faces=300, device="cpu")
     aj = build_assets_j(meshes, sym_transforms=syms, num_points=200, lod_faces=300)
     assert at.lod is not None and at.lod.tri_pos.shape[2] <= 300
     _assert_assets_equal(at, aj)
@@ -112,11 +115,11 @@ def test_build_assets_refuses_textured_meshes(textured):
     # use_textures=True on a set where no mesh has a texture.
     plain = [mesh_t.box_mesh(), mesh_t.icosphere_mesh()]
     with pytest.raises(ValueError, match="no mesh has a texture"):
-        build_assets_t(plain, num_points=64, use_textures=True)
+        build_assets_t(plain, num_points=64, use_textures=True, device="cpu")
     meshes = list(plain)
     for i in textured:
         meshes[i] = mesh_j.texturize(meshes[i], seed=1)
-    at = build_assets_t(meshes, num_points=64)
+    at = build_assets_t(meshes, num_points=64, device="cpu")
     assert at.textured and at.textures.shape == (2, 64, 64, 3)
     _assert_assets_equal(at, build_assets_j(meshes, num_points=64))
 
@@ -152,9 +155,25 @@ def _mixed_textured():
 @pytest.mark.parametrize("use_textures", [None, True, False])
 def test_build_assets_textured_fields_equal(use_textures):
     meshes = _mixed_textured()
-    at = build_assets_t(meshes, num_points=100, use_textures=use_textures, lod_faces=300)
+    at = build_assets_t(meshes, num_points=100, use_textures=use_textures, lod_faces=300,
+                        device="cpu")
     aj = build_assets_j(meshes, num_points=100, use_textures=use_textures, lod_faces=300)
     assert at.textured == (use_textures is not False)
     _assert_assets_equal(at, aj)
     if at.textured:
         assert at.lod.textures is at.textures  # the coarse level shares the atlas
+
+
+def test_entry_points_default_to_the_card():
+    # build_assets and make_intrinsics put their tensors on the card unless
+    # the caller asks for another device; random_quat follows its
+    # generator and takes no device.  Read from the signatures: nothing is
+    # made on a card.
+    from deepim_tpu_torch.geometry.rotations import random_quat
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+
+    for fn in (build_assets_t, make_intrinsics):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" not in inspect.signature(random_quat).parameters
+    q = random_quat(torch.Generator().manual_seed(0), (3,))
+    assert q.device.type == "cpu" and q.shape == (3, 4)

@@ -36,9 +36,9 @@ from deepim_tpu_torch.data.pairs import perturb_poses, sample_poses_in_frustum
 from deepim_tpu_torch.refine import build_assets, refine_poses
 
 g = torch.Generator().manual_seed(0)
-assets = build_assets([box_mesh(), icosphere_mesh(0.05)], num_points=16)
+assets = build_assets([box_mesh(), icosphere_mesh(0.05)], num_points=16, device="cpu")
 model = DeepIMFlowNet(num_classes=2, head_grid=bottleneck_grid(32, 64))
-k = make_intrinsics(150.0, 150.0, 80.0, 60.0)
+k = make_intrinsics(150.0, 150.0, 80.0, 60.0, device="cpu")
 gt = sample_poses_in_frustum(g, 2, k, (120, 160))
 init = perturb_poses(g, gt)
 out = refine_poses(model, assets, torch.rand(2, 120, 160, 3, generator=g), init,
@@ -48,7 +48,8 @@ assert out.shape == (2, 3, 4) and torch.isfinite(out).all()
 
 from deepim_tpu_torch.data import synthetic_occlusion_batch
 from deepim_tpu_torch.raster.mesh import texturize
-textured = build_assets([texturize(box_mesh(), seed=0), icosphere_mesh(0.05)], num_points=16)
+textured = build_assets([texturize(box_mesh(), seed=0), icosphere_mesh(0.05)], num_points=16,
+                        device="cpu")
 batch = synthetic_occlusion_batch(g, textured, 2, k, (32, 64))
 assert batch["obs_rgb"].shape == (2, 32, 64, 3) and torch.isfinite(batch["obs_rgb"]).all()
 leaked = [m for m, v in sys.modules.items()
@@ -76,6 +77,8 @@ def test_no_source_imports_jax_or_the_reference():
 
 
 def test_chip_smoke_imports_no_jax():
-    src = (ROOT / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(import|from)\s+(jax|flax|deepim_tpu)\b(?!_torch)",
-                         src, re.M)
+    # chip_smoke.py and the card script that imports it
+    for name in ("chip_smoke.py", "bench_raster_sorted.py"):
+        src = (ROOT / name).read_text()
+        assert not re.search(r"^\s*(import|from)\s+(jax|flax|deepim_tpu)\b(?!_torch)",
+                             src, re.M), name

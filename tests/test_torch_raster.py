@@ -200,6 +200,180 @@ def test_cols_overflow_falls_back_to_sorted():
     assert sil.mean() > 0.999, f"silhouette mismatch {1 - sil.mean():.4f}"
 
 
+# The sorted kernel's per-warp cull (csrc/raster_sorted.cu): a warp skips a
+# face when one of its planes, evaluated at the corner of the warp's 32x8
+# rectangle where it is largest, says no pixel there is covered or won.
+# The kernel can only be run on the card; these tests hold the cull's
+# arithmetic, in the plain versions' rounded order, to what it must keep.
+
+CULL_FRAMES = ((64, 96), (64, 80))  # the second clips the last warp column
+
+
+def _plane(q, i, x, y):
+    """The rounded plane a*x + b*y + c, in the order _resolve_ref uses."""
+    return q[..., i] * x + q[..., i + 1] * y + q[..., i + 2]
+
+
+def _cull_keeps(q, xl, xh, yl, yh):
+    """The kernel's test of faces ``q`` (..., 24) on the rectangle of pixel
+    centres [xl, xh] x [yl, yh]: each plane at its largest corner."""
+    def top(i):
+        x = torch.where(q[..., i] >= 0, xh, xl)
+        return _plane(q, i, x, torch.where(q[..., i + 1] >= 0, yh, yl))
+
+    return (top(0) >= 0) & (top(3) >= 0) & (top(6) >= 0) & (top(9) > 0)
+
+
+def _warp_rects(h, w):
+    """(xl, xh, yl, yh) pixel-centre bounds of every warp rectangle of an
+    h x w frame, clipped to it, as float32 scalars."""
+    f32 = lambda v: torch.tensor(v + 0.5, dtype=torch.float32)  # noqa: E731
+    return [(f32(x), f32(min(x + 31, w - 1)), f32(y), f32(min(y + 7, h - 1)))
+            for y in range(0, h, 8) for x in range(0, w, 32)]
+
+
+def _cull_faces(seed, n=100):
+    """Faces packed by _plane_pack, (params (1, N, 24), bbox (1, N, 4)):
+    random ones crossing the frame's edges, slivers (the third corner a
+    hair off the line of the other two, some of those lines through pixel
+    centres), micro-faces with |d| around the 1e-12 cut, faces far larger
+    than the frame, and culled ones (corner behind the camera or back
+    facing)."""
+    rng = np.random.RandomState(seed)
+    a, b = rng.uniform([-20, -20], [116, 84], (2, n, 2))
+    rand = np.stack([a, b, rng.uniform([-20, -20], [116, 84], (n, 2))], 1)
+    # slivers: a hair (log-uniform 1e-7..1e-2 px) off the line a-b
+    u = rng.uniform(0.1, 0.9, (n, 1))
+    nrm = (b - a)[:, ::-1] * [1, -1]
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    off = 10.0 ** rng.uniform(-7, -2, (n, 1))
+    sliver = np.stack([a, b, a + u * (b - a) + off * nrm], 1)
+    # horizontal slivers on rows of pixel centres, as in the bbox test below
+    y = rng.randint(0, 64, (n // 2, 1)) + 0.5
+    xa, xb = rng.uniform(-10, 100, (2, n // 2, 1))
+    row = np.stack([np.c_[xa, y], np.c_[xb, y],
+                    np.c_[(xa + xb) / 2, y + 10.0 ** rng.uniform(-7, -5, (n // 2, 1))]], 1)
+    # micro-faces: edges of ~1e-6 px near (1, 1), |d| spread about 1e-12
+    c = rng.uniform(0.5, 3.0, (n // 2, 1, 2))
+    micro = c + rng.uniform(-1, 1, (n // 2, 3, 2)) * 10.0 ** rng.uniform(-7, -5, (n // 2, 1, 1))
+    huge = rng.uniform(-3000, 3000, (n // 2, 3, 2))
+    xy = torch.from_numpy(np.concatenate([rand, sliver, row, micro, huge]).astype(np.float32))
+    m = xy.shape[0]
+    z = torch.from_numpy(rng.uniform(0.3, 2.0, (3, 1, m)).astype(np.float32))
+    ok = torch.from_numpy(rng.uniform(size=(1, m)) > 0.1)  # some behind the camera
+    col = tuple(tuple(torch.from_numpy(rng.uniform(size=(1, m)).astype(np.float32))
+                      for _ in range(3)) for _ in range(3))
+    corners = tuple((xy[None, :, i, 0], xy[None, :, i, 1]) for i in range(3))
+    cull = torch.tensor([[1.0 if seed % 2 else 0.0]])  # back faces culled on odd seeds
+    params, bbox, _ = rc._plane_pack(corners, tuple(z), col, ok, cull)
+    return params, bbox
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sorted_cull_keeps_every_covering_face(seed):
+    # For every face and warp rectangle: each plane's largest rounded value
+    # over the rectangle's pixels is the kernel's corner value (rounding is
+    # monotone), so a face that covers a pixel there with positive inverse
+    # depth always passes the cull.
+    params, _ = _cull_faces(seed)
+    q = params[0][:, None, :]  # (N, 1, 24)
+    kept = covered = 0
+    for h, w in CULL_FRAMES:
+        for xl, xh, yl, yh in _warp_rects(h, w):
+            xs = torch.arange(int(xl), int(xh) + 1, dtype=torch.float32) + 0.5
+            ys = torch.arange(int(yl), int(yh) + 1, dtype=torch.float32) + 0.5
+            px, py = (t.reshape(1, -1) for t in torch.meshgrid(xs, ys, indexing="xy"))
+            planes = [_plane(q, i, px, py) for i in (0, 3, 6, 9)]  # each (N, P)
+            for i, pl in zip((0, 3, 6, 9), planes):
+                a, b = q[:, 0, i], q[:, 0, i + 1]
+                top = _plane(q[:, 0], i, torch.where(a >= 0, xh, xl),
+                             torch.where(b >= 0, yh, yl))
+                assert torch.equal(pl.max(1).values, top)
+            cov = ((planes[0] >= 0) & (planes[1] >= 0) & (planes[2] >= 0)
+                   & (planes[3] > 0)).any(1)
+            keep = _cull_keeps(q[:, 0], xl, xh, yl, yh)
+            assert not (cov & ~keep).any()
+            kept += int(keep.sum())
+            covered += int(cov.sum())
+    n_tests = params.shape[1] * sum(len(_warp_rects(*f)) for f in CULL_FRAMES)
+    assert 0 < covered <= kept < 0.5 * n_tests  # it culls, and not everything
+
+
+def test_sorted_cull_bbox_is_not_a_bound():
+    # Why the cull evaluates planes instead of testing the face's bbox: a
+    # sliver 1e-6 px thick on the row of centres y = 10.5 covers, under the
+    # rounded plane arithmetic, pixels up to 9.5 px left of its bbox.
+    xy = torch.tensor([[10.0, 10.5], [50.0, 10.5], [30.0, 10.5 + 1e-6]])
+    corners = tuple((xy[None, None, i, 0], xy[None, None, i, 1]) for i in range(3))
+    one = torch.ones((1, 1))
+    params, bbox, ok = rc._plane_pack(corners, (one, one, one), ((one,) * 3,) * 3,
+                                      torch.ones((1, 1), dtype=torch.bool))
+    assert bool(ok)
+    q = params[0, 0]
+    xs = torch.arange(64, dtype=torch.float32) + 0.5
+    y = torch.tensor(10.5)
+    cov = (_plane(q, 0, xs, y) >= 0) & (_plane(q, 3, xs, y) >= 0) & (_plane(q, 6, xs, y) >= 0)
+    outside = cov & ((xs < bbox[0, 0, 0] - 1) | (xs > bbox[0, 0, 1] + 1))
+    assert outside.any() and float(xs[outside].min()) < 5.0
+    # the warp rectangle x 0..31, y 8..15 holds those pixels: the cull keeps it
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    assert bool(_cull_keeps(q, f32(0.5), f32(31.5), f32(8.5), f32(15.5)))
+
+
+def _culled_walk(params, vals, starts, glob, h, w):
+    """The sorted kernel's algorithm in plain PyTorch: per 32x8 warp
+    rectangle, the tile's list then the global list, culled by
+    _cull_keeps, then the strict-'>' walk (as a first maximum)."""
+    th, tw = rc.SORT_TILE
+    tx = -(-w // tw)
+    z, r, g, bl = torch.zeros((4, params.shape[0], h, w))
+    for s in range(params.shape[0]):
+        glob_ids = glob[s, 1:1 + int(glob[s, 0])]
+        for t in range(starts.shape[1] - 1):
+            ids = torch.cat([vals[s, int(starts[s, t]):int(starts[s, t + 1])], glob_ids])
+            q = params[s, ids.long()]
+            oy, ox = (t // tx) * th, (t % tx) * tw
+            for y0 in range(oy, min(oy + th, h), 8):
+                for x0 in range(ox, min(ox + tw, w), 32):
+                    x1, y1 = min(x0 + 31, w - 1), min(y0 + 7, h - 1)
+                    f32 = lambda v: torch.tensor(v + 0.5)  # noqa: E731
+                    qk = q[_cull_keeps(q, f32(x0), f32(x1), f32(y0), f32(y1))][:, None]
+                    xs = torch.arange(x0, x1 + 1, dtype=torch.float32) + 0.5
+                    ys = torch.arange(y0, y1 + 1, dtype=torch.float32) + 0.5
+                    px, py = (a.reshape(1, -1) for a in torch.meshgrid(xs, ys, indexing="xy"))
+                    if qk.shape[0] == 0:
+                        continue
+                    inside = ((_plane(qk, 0, px, py) >= 0) & (_plane(qk, 3, px, py) >= 0)
+                              & (_plane(qk, 6, px, py) >= 0))
+                    zz, win = torch.where(inside, _plane(qk, 9, px, py), 0.0).max(0)
+                    pw = qk[win, 0]  # (P, 24)
+                    hit = zz > 0
+                    acc = [torch.where(hit, a, 0.0).reshape(y1 - y0 + 1, x1 - x0 + 1)
+                           for a in (zz, *(_plane(pw, i, px[0], py[0]) for i in (12, 15, 18)))]
+                    for out, a in zip((z, r, g, bl), acc):
+                        out[s, y0:y1 + 1, x0:x1 + 1] = a
+    return rc._finish(z, r, g, bl)
+
+
+@pytest.mark.parametrize("mesh,seed,cull", CASES)
+def test_sorted_culled_walk_matches_plain_bit_for_bit(mesh, seed, cull):
+    # The kernel's cull and walk order, emulated, give the plain version's
+    # output bit for bit on a mesh (every span the port uses) and on the
+    # cull's adversarial faces.
+    (_, _, _), (params, bbox, ok) = _pack_both(mesh, _poses(2, seed, 0.45), cull)
+    params, bbox, ok = map(torch.from_numpy, (params, bbox, ok))
+    cases = [(params, bbox, ok, (H, W), spans) for spans in ((4, 2), (8, 3), (2, 1))]
+    p, bb = _cull_faces(seed)
+    cases.append((p, bb, torch.ones(p.shape[:2], dtype=torch.bool), (50, 70), (1, 1)))
+    for p, bb, o, (h, w), spans in cases:
+        binned = rc.bin_faces_sorted(bb, o, (h, w), *spans)
+        want = rc.raster_sorted_ref(p, *binned, h, w)
+        got = _culled_walk(p, *binned, h, w)
+        assert (want[1] > 0).any()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 def test_wrappers_dispatch_by_device():
     # CPU tensors take the plain versions (no launch counted); a device
     # with no kernel raises instead of falling back.
@@ -218,6 +392,9 @@ def test_wrappers_dispatch_by_device():
     meta = [t.to("meta") for t in (params, *rc.bin_faces_packed(bbox, ok, (16, 16)))]
     with pytest.raises(ValueError):
         rc.raster_cols(*meta, 16, 16)
+    meta = [t.to("meta") for t in (params, *rc.bin_faces_sorted(bbox, ok, (16, 16)))]
+    with pytest.raises(ValueError):
+        rc.raster_sorted(*meta, 16, 16)
     meta = [t.to("meta") for t in (params, *rc.bin_faces_topk(bbox, ok, (16, 16), 4))]
     with pytest.raises(ValueError):
         rc.raster_topk(*meta, 16, 16)

@@ -81,7 +81,7 @@ def test_trajectories_match_reference(dense, coarse, route):
         coarse_iters=coarse)
     raster_cuda.reset_launches()
     traj_t = ref_t.refine_poses(
-        mt, ref_t.build_assets(meshes, num_points=64), torch.from_numpy(obs),
+        mt, ref_t.build_assets(meshes, num_points=64, device="cpu"), torch.from_numpy(obs),
         torch.from_numpy(init), torch.from_numpy(ks), torch.from_numpy(cls),
         num_iters=2, out_size=OUT, return_all=True, coarse_iters=coarse)
     traj_j = np.asarray(traj_j)
@@ -97,12 +97,13 @@ def test_identity_heads_pass_poses_through():
     init, obs, ks, cls = _inputs(seed=4)
     mt = fn_t.DeepIMFlowNet(num_classes=3, input_size=OUT, dtype=torch.float32)
     out = ref_t.refine_poses(
-        mt, ref_t.build_assets(_meshes(False), num_points=16), torch.from_numpy(obs),
+        mt, ref_t.build_assets(_meshes(False), num_points=16, device="cpu"),
+        torch.from_numpy(obs),
         torch.from_numpy(init), torch.from_numpy(ks), torch.from_numpy(cls),
         num_iters=2, out_size=OUT)
     np.testing.assert_allclose(out.numpy(), init, atol=1e-5)
     with pytest.raises(ValueError):  # coarse-to-fine needs a head_grid
-        ref_t.refine_poses(mt, ref_t.build_assets(_meshes(False), num_points=16),
+        ref_t.refine_poses(mt, ref_t.build_assets(_meshes(False), num_points=16, device="cpu"),
                            torch.from_numpy(obs), torch.from_numpy(init),
                            torch.from_numpy(ks), torch.from_numpy(cls),
                            num_iters=2, out_size=OUT, coarse_iters=1)
@@ -117,7 +118,7 @@ def test_build_network_inputs_match():
         jnp.asarray(obs), jnp.asarray(init), jnp.asarray(ks), OUT,
         renderer="pallas_interpret")
     ni_t = ref_t.build_network_inputs(
-        mt, ref_t.gather_class(ref_t.build_assets(meshes, num_points=16),
+        mt, ref_t.gather_class(ref_t.build_assets(meshes, num_points=16, device="cpu"),
                                torch.from_numpy(cls)),
         torch.from_numpy(obs), torch.from_numpy(init), torch.from_numpy(ks), OUT)
     np.testing.assert_allclose(ni_t.k_zoom.numpy(), np.asarray(ni_j.k_zoom),
@@ -133,13 +134,13 @@ def test_textured_assets_refuse_to_render():
     # with no texture.  use_textures=False bakes colours into the plain path.
     meshes = [mesh_j.texturize(mesh_j.box_mesh(), seed=1), mesh_j.torus_mesh()]
     with pytest.raises(ValueError, match="no mesh has a texture"):
-        ref_t.build_assets([mesh_j.torus_mesh()], num_points=16, use_textures=True)
+        ref_t.build_assets([mesh_j.torus_mesh()], num_points=16, use_textures=True, device="cpu")
     init = torch.from_numpy(_inputs(seed=7)[0])
     ks = torch.tensor([[60.0, 0, OUT[1] / 2], [0, 60.0, OUT[0] / 2], [0, 0, 1]]).expand(B, 3, 3)
     cls = torch.tensor([0, 1, 0])
     crops = {}
     for use in (True, False):
-        assets = ref_t.build_assets(meshes, num_points=16, use_textures=use)
+        assets = ref_t.build_assets(meshes, num_points=16, use_textures=use, device="cpu")
         assert assets.textured == use
         crops[use] = ref_t.render_crops(ref_t.gather_class(assets, cls), init, ks, OUT)
     for rgb, depth in crops.values():

@@ -41,7 +41,8 @@ def _meshes(textured):
 
 def _assets(textured):
     meshes = _meshes(textured)
-    return ref_t.build_assets(meshes, num_points=32), ref_j.build_assets(meshes, num_points=32)
+    return (ref_t.build_assets(meshes, num_points=32, device="cpu"),
+            ref_j.build_assets(meshes, num_points=32))
 
 
 def _scene(seed):

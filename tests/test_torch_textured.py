@@ -108,7 +108,7 @@ def test_textured_trajectories_match_reference(dense, route):
     init, obs, ks, cls = _inputs(seed=6)
     mj, var, mt = _weights(seed=1)
     assets_j = ref_j.build_assets(meshes, num_points=64)
-    assets_t = ref_t.build_assets(meshes, num_points=64)
+    assets_t = ref_t.build_assets(meshes, num_points=64, device="cpu")
     assert assets_t.textured and assets_j.textured
     traj_j = ref_j.refine_poses(
         var, mj, assets_j, jnp.asarray(obs), jnp.asarray(init), jnp.asarray(ks),
