@@ -13,8 +13,10 @@ Phases, one line each (any failure raises and the script exits nonzero):
    (one ``nvcc`` per source, all started together).
 3. Kernels against their plain PyTorch versions on the binned inputs the
    main path gives them, at 480x640 and 240x320 with B=128: the cols
-   kernel on the headline's 1,280 faces; the sorted kernel on the cols
-   path's fallback binning and on the sort route of sub-1,024-face assets
+   kernel on the headline's 1,280 faces (and on 204x296 crops of them,
+   whose last 128-px column is 40 pixels wide and whose last row of
+   sub-tiles 4 pixels high: the clipped warp rectangles); the sorted
+   kernel on the cols path's fallback binning and on the sort route of sub-1,024-face assets
    (spans (8, 3), whose global list must be nonempty at 480x640), and at
    240x320 on the decimated level (``lod_faces=1024``) of classes padded
    to 4,096 faces (the coarse iterations of real-size assets); then a mesh that overflows the
@@ -27,8 +29,8 @@ Phases, one line each (any failure raises and the script exits nonzero):
    planes for each face that wins a pixel, read once; 16 B a pixel
    written once) at 3.35 TB/s against its plane work (16 fp32 operations
    per pixel centre inside a listed face's bbox) at 67 TFLOP/s, the
-   larger of the two, and its share of the measured time; the sorted
-   kernel's lines carry its ptxas registers and spills.
+   larger of the two, and its share of the measured time, and the
+   kernel's ptxas registers and spills.
 4. Slice parity: ``refine_poses`` on the card (kernels) against the same
    call on the CPU (plain versions), float32, TF32 off, B=8.
 5. Main path: ``refine_poses`` at the headline protocol (B=128, K=4: 2
@@ -285,14 +287,30 @@ def compare(name, kern, plain, args, bbox, min_covered=0.05, reps=(20, 3), **fie
     covered = (out_p[1] > 0).float().mean().item()
     b = bound(name, args, bbox, winning_faces(kern, args))
     b["bound_share"] = b["bound_ms"] / ms if ms > 0 else None
-    extra = {"ptxas": repr(PTXAS.get(f"{name}_kernel", "no nvcc log"))} \
-        if name == "raster_sorted" else {}
     log("kernels", kernel=name, **fields, batch=args[0].shape[0], faces=args[0].shape[1],
         rgb_mismatch=frac_rgb, depth_mismatch=frac_d, max_abs_err=err,
-        covered=covered, ms=ms, plain_ms=plain_ms, **b, **extra)
+        covered=covered, ms=ms, plain_ms=plain_ms, **b,
+        ptxas=repr(PTXAS.get(f"{name}_kernel", "no nvcc log")))
     if err != 0.0 or covered < min_covered:
         raise AssertionError(f"{name} {fields} disagrees with its plain version")
     return {**fields, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+# Crops of the headline classes at a width that is no multiple of 128 or of
+# 32 and a height that is no multiple of 8: the cols kernel's last column
+# holds 40 pixels (one warp's rectangle whole, one clipped to 8 columns, two
+# outside the image), and its last row of sub-tiles 4 pixels' height.
+ODD_CROP = (204, 296)
+
+
+def crop_pack(rc, ab, init, ks, size):
+    """(params, bbox, ok) of the gathered assets ``ab`` at poses ``init``,
+    packed for crops of ``size`` as ``render_crops`` packs them."""
+    from deepim_tpu_torch.ops.zoom import compute_zoom_box, zoom_intrinsics
+
+    kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, size))
+    return rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm, init, kz,
+                              rc.FLAT_LIGHTING, 0.01, ab.cull_dir)
 
 
 def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
@@ -301,19 +319,14 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     and the sort route of sub-1,024-face assets; then a mesh that
     overflows the cols kernel's global list."""
     from deepim_tpu_torch import headline as hl
-    from deepim_tpu_torch.ops.zoom import compute_zoom_box, zoom_intrinsics
-    from deepim_tpu_torch.refine import build_assets, gather_class
+    from deepim_tpu_torch.refine import gather_class
 
     record = {"raster_cols": [], "raster_sorted": []}
     for size in (hl.SIZE, hl.COARSE):
         h, w = size
         tag = f"{h}x{w}"
         for a in (assets, sort_assets):
-            ab = gather_class(a, cls)
-            kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, size))
-            params, bbox, ok = rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm,
-                                                  init, kz, rc.FLAT_LIGHTING, 0.01,
-                                                  ab.cull_dir)
+            params, bbox, ok = crop_pack(rc, gather_class(a, cls), init, ks, size)
             if a is sort_assets:
                 # render_crops' sort route: spans (8, 3), faces taller than
                 # 8 tiles go on the global list.
@@ -337,16 +350,18 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
                 (params, *rc.bin_faces_sorted(bbox, ok, size, sy_span=-(-h // 32),
                                               sx_span=-(-w // 256)), h, w), bbox,
                 case="fallback_binning", size=tag))
+    h, w = ODD_CROP
+    params, bbox, ok = crop_pack(rc, gather_class(assets, cls), init, ks, ODD_CROP)
+    record["raster_cols"].append(compare(
+        "raster_cols", rc.raster_cols, rc.raster_cols_ref,
+        (params, *rc.bin_faces_packed(bbox, ok, ODD_CROP), h, w), bbox,
+        case="cols_route_clipped", size=f"{h}x{w}"))
 
     # The coarse iterations of 4,096-face assets: the crop route at 240x320
     # on their decimated level (lod_faces=1024, under the cols crossover).
-    lod = build_assets(dense_meshes(), sym_transforms=hl.headline_meshes()[1],
-                       num_points=300, lod_faces=hl.LOD_FACES, device=dev).lod
-    ab = gather_class(lod, cls)
+    lod = dense_assets(dev, lod_faces=hl.LOD_FACES).lod
     h, w = hl.COARSE
-    kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, hl.COARSE))
-    params, bbox, ok = rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm, init, kz,
-                                          rc.FLAT_LIGHTING, 0.01, ab.cull_dir)
+    params, bbox, ok = crop_pack(rc, gather_class(lod, cls), init, ks, hl.COARSE)
     if params.shape[1] >= rc._COLS_MIN_FACES_CROP:
         raise AssertionError(f"the LOD has {params.shape[1]} faces: not the sort route")
     binned = rc.bin_faces_sorted(bbox, ok, hl.COARSE, sy_span=8, sx_span=3)
@@ -420,35 +435,41 @@ def _shared_sphere(dev):
     return [torch.from_numpy(a).to(dev) for a in (m.vertices, m.faces, m.colors, m.normals)]
 
 
-def phase_topk_kernel(dev, assets, init, ks, cls, rc):
-    """The top-k kernel against its plain version on two kinds of input:
-    the headline crops (crop intrinsics, back-face culling) binned at
-    TOPK_CAP faces per tile, and one full-frame shared-mesh render_batch
-    pack (no culling: the tiles around the sphere overflow the cap)."""
+def topk_cases(dev, assets, init, ks, cls, rc):
+    """(case, (h, w), args, bbox) of the top-k kernel's two kinds of input
+    at both sizes: the headline crops (crop intrinsics, back-face culling)
+    binned at TOPK_CAP faces per tile, and one full-frame shared-mesh
+    render_batch pack (no culling: the tiles around the sphere overflow
+    the cap)."""
     from deepim_tpu_torch import headline as hl
-    from deepim_tpu_torch.ops.zoom import compute_zoom_box, zoom_intrinsics
     from deepim_tpu_torch.refine import gather_class
 
     ab = gather_class(assets, cls)
     b = init.shape[0]
     shared = [t.expand(b, *t.shape) for t in _shared_sphere(dev)]
-    records = []
     for size in (hl.SIZE, hl.COARSE):
         h, w = size
-        kz = zoom_intrinsics(ks, compute_zoom_box(init, ks, ab.corners, size))
-        crop = rc.pack_tri_params(ab.tri_pos, ab.tri_col, ab.tri_nrm, init, kz,
-                                  rc.FLAT_LIGHTING, 0.01, ab.cull_dir)
         k_full = ks.clone()
         k_full[:, :2] *= h / hl.SIZE[0]  # the camera at this image size
-        full = rc.pack_face_params(*shared, init, k_full, rc.FLAT_LIGHTING, 0.01)
-        for case, (params, bbox, ok), min_covered in (
-                ("crop", crop, 0.05), ("full_frame_render_batch", full, 1e-3)):
+        for case, (params, bbox, ok) in (
+                ("crop", crop_pack(rc, ab, init, ks, size)),
+                ("full_frame_render_batch",
+                 rc.pack_face_params(*shared, init, k_full, rc.FLAT_LIGHTING, 0.01))):
             lists, counts = rc.bin_faces_topk(bbox, ok, size, TOPK_CAP)
-            records.append(compare(
-                "raster_topk", rc.raster_topk, rc.raster_topk_ref, (params, lists, counts, h, w),
-                bbox, min_covered=min_covered, case=case, size=f"{h}x{w}", tiles=counts.numel(),
-                tiles_at_cap=int((counts == lists.shape[2]).sum()),
-                max_count=int(counts.max())))
+            yield case, size, (params, lists, counts, h, w), bbox
+
+
+def phase_topk_kernel(dev, assets, init, ks, cls, rc):
+    """The top-k kernel against its plain version on every case of
+    :func:`topk_cases`."""
+    records = []
+    for case, (h, w), args, bbox in topk_cases(dev, assets, init, ks, cls, rc):
+        lists, counts = args[1:3]
+        records.append(compare(
+            "raster_topk", rc.raster_topk, rc.raster_topk_ref, args, bbox,
+            min_covered=0.05 if case == "crop" else 1e-3, case=case, size=f"{h}x{w}",
+            tiles=counts.numel(), tiles_at_cap=int((counts == lists.shape[2]).sum()),
+            max_count=int(counts.max())))
     return records
 
 
@@ -464,22 +485,26 @@ def dense_meshes():
     return [meshes[0], meshes[1], cylinder_mesh(rows=4), torus_mesh(n_major=64, n_minor=32)]
 
 
+def dense_assets(dev, **kwargs):
+    """Assets of :func:`dense_meshes` with the headline's symmetries."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.refine import build_assets
+
+    return build_assets(dense_meshes(), sym_transforms=hl.headline_meshes()[1],
+                        num_points=300, device=dev, **kwargs)
+
+
 def synthesis_assets(dev, assets, tex_assets):
     """The three synthesis runs, (name, assets, distractors, expected
     launches): the headline assets, their textured variant, and classes
     padded to 4,096 faces."""
-    from deepim_tpu_torch import headline as hl
-    from deepim_tpu_torch.refine import build_assets
-
     one_each = {"raster_cols": 1, "raster_sorted": 1, "raster_topk": 0, "cols_fallback": 0}
-    syms = hl.headline_meshes()[1]
-    dense = dense_meshes()
     return [
         ("untextured", assets, 2, one_each),
         ("textured", tex_assets, 2, one_each),
         # 4 slots x 4,096 = 16,384 faces: chunks of 12,288 and 4,096, each
         # on the cols kernel, z-merged; the target-only depth: cols again.
-        ("chunked", build_assets(dense, sym_transforms=syms, num_points=300, device=dev), 3,
+        ("chunked", dense_assets(dev), 3,
          {"raster_cols": 3, "raster_sorted": 0, "raster_topk": 0, "cols_fallback": 0}),
     ]
 

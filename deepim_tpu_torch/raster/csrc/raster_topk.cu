@@ -10,18 +10,21 @@
 // the reference).  It carries binning="topk" of render_batch,
 // render_batch_tri and render_batch_textured.
 //
-// What bounds it on the card: ALU, as for the other two kernels: four plane
-// evaluations per face and pixel (colour planes only on a win), plus 96
-// bytes of params per listed face, which the block stages once in shared
-// memory (raster_common.cuh §walk) and every thread reads by broadcast.
-// Every tile walks its whole capped list, so a crowded tile costs up to K
-// faces however few of them cover its pixels.
+// What bounds it on the card: bytes (outputs, 16 bytes a pixel, and 48 + 36
+// bytes a listed / winning face).  A crowded tile lists up to K faces
+// however few of them reach a given pixel, so a walk of the whole list at
+// all 8,192 pixels of the tile took 3-17 times the bound.  The kernel is now
+// the sorted kernel's launch on a capped list: the shared walk,
+// raster_common.cuh §culled_walk (per-warp cull by each plane's largest
+// corner value, winner ids, cp.async double buffering), over
+// lists[row*K : row*K + counts[row]] and no second list; blocks of 256
+// threads own a 32x64 quarter of a tile, four an SM, each warp a 32x8
+// rectangle, and a quarter past the image's right edge returns at once.
+// Which faces a tile drops is the binning's; nothing of it changes here.
 //
-// Design: the sorted kernel's shape (one block per (sample, 32x256 tile),
-// 256x4 threads, 8 rows per thread), walking the tile's list instead of a
-// sorted range.  The count and ids come straight from the two binned arrays
-// (no fused row, no DMA); it writes (H, W) with edge masks, launches on the
-// caller's stream and allocates nothing.
+// The count and ids come straight from the two binned arrays (no fused row,
+// no DMA); it writes (H, W) with edge masks, launches on the caller's stream
+// and allocates nothing.
 
 #include "raster_common.cuh"
 
@@ -29,26 +32,34 @@ namespace {
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 256;
-constexpr int kThreadsY = 4;
-constexpr int kRowsPerThread = kTileH / kThreadsY;
+constexpr int kQuarterW = 64;                        // block width; 4 blocks a tile
+constexpr int kWarpsX = kQuarterW / deepim::kWarpW;  // 2
+constexpr int kWarpsY = kTileH / deepim::kRows;      // 4
+constexpr int kThreads = 32 * kWarpsX * kWarpsY;     // 256
+constexpr int kMinBlocks = 4;  // resident blocks an SM: at most 64 registers
 
-__global__ void __launch_bounds__(kTileW * kThreadsY)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 raster_topk_kernel(const float4* __restrict__ params, const int* __restrict__ lists,
                    const int* __restrict__ counts, float* __restrict__ rgb,
                    float* __restrict__ depth, int F, int H, int W, int K, int n_tx,
                    int n_tiles) {
-  __shared__ float4 stage[deepim::kStage * deepim::kParamVecs];
+  __shared__ deepim::Stage stage;
   const int b = blockIdx.y;
-  const int t = blockIdx.x;  // row-major tile id
-  const int x = (t % n_tx) * kTileW + threadIdx.x;
-  const int row0 = (t / n_tx) * kTileH + threadIdx.y;
-  const float px = (float)x + 0.5f;
+  const int t = blockIdx.x / 4;  // row-major tile id
+  const int x0 = (t % n_tx) * kTileW + (blockIdx.x % 4) * kQuarterW;
+  if (x0 >= W) return;  // the whole block: before any barrier
+  const int warp = threadIdx.x >> 5;
+  const deepim::WarpRect w = deepim::warp_rect(
+      x0 + (warp % kWarpsX) * deepim::kWarpW,
+      (t / n_tx) * kTileH + (warp / kWarpsX) * deepim::kRows, threadIdx.x & 31, H, W);
 
-  deepim::Pixels<kRowsPerThread> acc = {};
+  const float4* p = params + (size_t)b * F * deepim::kParamVecs;
   const size_t row = (size_t)b * n_tiles + t;
-  deepim::walk(params + (size_t)b * F * deepim::kParamVecs, lists + row * K, 0,
-               __ldg(counts + row), stage, px, row0, kThreadsY, acc);
-  deepim::store(acc, rgb, depth, b, H, W, x, row0, kThreadsY);
+  float zbuf[deepim::kRows] = {};
+  int win[deepim::kRows] = {};
+  deepim::culled_walk<kThreads>(p, lists + row * K, __ldg(counts + row), nullptr, 0, stage,
+                                w, zbuf, win);
+  deepim::shade_store(p, zbuf, win, w, rgb, depth, b, H, W);
 }
 
 }  // namespace
@@ -59,9 +70,8 @@ extern "C" int deepim_raster_topk(const void* params, const void* lists,
   const int n_ty = (H + kTileH - 1) / kTileH;
   const int n_tx = (W + kTileW - 1) / kTileW;
   if (B > 0 && H > 0 && W > 0) {
-    const dim3 grid(n_ty * n_tx, B);
-    const dim3 block(kTileW, kThreadsY);
-    raster_topk_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+    const dim3 grid(4 * n_ty * n_tx, B);
+    raster_topk_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(params), static_cast<const int*>(lists),
         static_cast<const int*>(counts), static_cast<float*>(rgb),
         static_cast<float*>(depth), F, H, W, K, n_tx, n_ty * n_tx);

@@ -78,7 +78,7 @@ def test_no_source_imports_jax_or_the_reference():
 
 def test_chip_smoke_imports_no_jax():
     # chip_smoke.py and the card script that imports it
-    for name in ("chip_smoke.py", "bench_raster_sorted.py"):
+    for name in ("chip_smoke.py", "bench_raster.py"):
         src = (ROOT / name).read_text()
         assert not re.search(r"^\s*(import|from)\s+(jax|flax|deepim_tpu)\b(?!_torch)",
                              src, re.M), name

@@ -200,11 +200,14 @@ def test_cols_overflow_falls_back_to_sorted():
     assert sil.mean() > 0.999, f"silhouette mismatch {1 - sil.mean():.4f}"
 
 
-# The sorted kernel's per-warp cull (csrc/raster_sorted.cu): a warp skips a
-# face when one of its planes, evaluated at the corner of the warp's 32x8
+# The per-warp cull of the three kernels' shared walk
+# (csrc/raster_common.cuh): a warp owns a rectangle of 32x8 pixels and
+# skips a face when one of its planes, evaluated at the corner of the
 # rectangle where it is largest, says no pixel there is covered or won.
-# The kernel can only be run on the card; these tests hold the cull's
-# arithmetic, in the plain versions' rounded order, to what it must keep.
+# The kernels can only be run on the card; these tests hold the cull's
+# arithmetic, in the plain versions' rounded order, to what it must keep,
+# and each kernel's lists and order.
+
 
 CULL_FRAMES = ((64, 96), (64, 80))  # the second clips the last warp column
 
@@ -320,58 +323,178 @@ def test_sorted_cull_bbox_is_not_a_bound():
     assert bool(_cull_keeps(q, f32(0.5), f32(31.5), f32(8.5), f32(15.5)))
 
 
-def _culled_walk(params, vals, starts, glob, h, w):
-    """The sorted kernel's algorithm in plain PyTorch: per 32x8 warp
-    rectangle, the tile's list then the global list, culled by
-    _cull_keeps, then the strict-'>' walk (as a first maximum)."""
+def _tile_rects(t, h, w):
+    """Origins of the live 32x8 warp rectangles of row-major 32x256 tile t."""
     th, tw = rc.SORT_TILE
     tx = -(-w // tw)
+    oy, ox = (t // tx) * th, (t % tx) * tw
+    return [(x0, y0) for y0 in range(oy, min(oy + th, h), 8)
+            for x0 in range(ox, min(ox + tw, w), 32)]
+
+
+def _sorted_warp_lists(vals, starts, glob, h, w):
+    """(x0, y0, ids) of every live warp of the sorted kernel, one sample:
+    the tile's range, then the global list."""
+    glob_ids = glob[1:1 + int(glob[0])]
+    for t in range(starts.shape[0] - 1):
+        ids = torch.cat([vals[int(starts[t]):int(starts[t + 1])], glob_ids])
+        for x0, y0 in _tile_rects(t, h, w):
+            yield x0, y0, ids
+
+
+def _topk_warp_lists(lists, counts, h, w):
+    """(x0, y0, ids) of every live warp of the top-k kernel, one sample:
+    the tile's capped list."""
+    for t in range(counts.shape[0]):
+        for x0, y0 in _tile_rects(t, h, w):
+            yield x0, y0, lists[t, :int(counts[t])]
+
+
+def _cols_warp_lists(face_ids, starts, glob_col, h, w):
+    """(x0, y0, ids) of every live warp of the cols kernel, one sample:
+    four warps to an 8x128 sub-tile (column-major ids), each with the
+    sub-tile's range, then its column's global range."""
+    n_subs, n_cols = -(-h // 8), -(-w // 128)
+    gids = glob_col[n_cols + 1:]
+    for xi in range(n_cols):
+        glob_ids = gids[int(glob_col[xi]):int(glob_col[xi + 1])]
+        for sub in range(n_subs):
+            t = xi * n_subs + sub
+            ids = torch.cat([face_ids[int(starts[t]):int(starts[t + 1])], glob_ids])
+            for x0 in range(xi * 128, min(xi * 128 + 128, w), 32):
+                yield x0, sub * 8, ids
+
+
+WARP_LISTS = {"sorted": _sorted_warp_lists, "cols": _cols_warp_lists,
+              "topk": _topk_warp_lists}
+PLAIN = {"sorted": rc.raster_sorted_ref, "cols": rc.raster_cols_ref,
+         "topk": rc.raster_topk_ref}
+
+
+def _culled_walk(kernel, params, *binned_h_w):
+    """The shared walk of the three kernels (csrc/raster_common.cuh) in
+    plain PyTorch: per 32x8 warp rectangle, the faces ``kernel`` lists for it,
+    culled by _cull_keeps, then the strict-'>' walk (as a first maximum);
+    pixels of no live warp, or whose warp keeps no face, stay background."""
+    *binned, h, w = binned_h_w
     z, r, g, bl = torch.zeros((4, params.shape[0], h, w))
+    f32 = lambda v: torch.tensor(v + 0.5)  # noqa: E731
     for s in range(params.shape[0]):
-        glob_ids = glob[s, 1:1 + int(glob[s, 0])]
-        for t in range(starts.shape[1] - 1):
-            ids = torch.cat([vals[s, int(starts[s, t]):int(starts[s, t + 1])], glob_ids])
+        for x0, y0, ids in WARP_LISTS[kernel](*(a[s] for a in binned), h, w):
             q = params[s, ids.long()]
-            oy, ox = (t // tx) * th, (t % tx) * tw
-            for y0 in range(oy, min(oy + th, h), 8):
-                for x0 in range(ox, min(ox + tw, w), 32):
-                    x1, y1 = min(x0 + 31, w - 1), min(y0 + 7, h - 1)
-                    f32 = lambda v: torch.tensor(v + 0.5)  # noqa: E731
-                    qk = q[_cull_keeps(q, f32(x0), f32(x1), f32(y0), f32(y1))][:, None]
-                    xs = torch.arange(x0, x1 + 1, dtype=torch.float32) + 0.5
-                    ys = torch.arange(y0, y1 + 1, dtype=torch.float32) + 0.5
-                    px, py = (a.reshape(1, -1) for a in torch.meshgrid(xs, ys, indexing="xy"))
-                    if qk.shape[0] == 0:
-                        continue
-                    inside = ((_plane(qk, 0, px, py) >= 0) & (_plane(qk, 3, px, py) >= 0)
-                              & (_plane(qk, 6, px, py) >= 0))
-                    zz, win = torch.where(inside, _plane(qk, 9, px, py), 0.0).max(0)
-                    pw = qk[win, 0]  # (P, 24)
-                    hit = zz > 0
-                    acc = [torch.where(hit, a, 0.0).reshape(y1 - y0 + 1, x1 - x0 + 1)
-                           for a in (zz, *(_plane(pw, i, px[0], py[0]) for i in (12, 15, 18)))]
-                    for out, a in zip((z, r, g, bl), acc):
-                        out[s, y0:y1 + 1, x0:x1 + 1] = a
+            x1, y1 = min(x0 + 31, w - 1), min(y0 + 7, h - 1)
+            qk = q[_cull_keeps(q, f32(x0), f32(x1), f32(y0), f32(y1))][:, None]
+            if qk.shape[0] == 0:
+                continue
+            xs = torch.arange(x0, x1 + 1, dtype=torch.float32) + 0.5
+            ys = torch.arange(y0, y1 + 1, dtype=torch.float32) + 0.5
+            px, py = (a.reshape(1, -1) for a in torch.meshgrid(xs, ys, indexing="xy"))
+            inside = ((_plane(qk, 0, px, py) >= 0) & (_plane(qk, 3, px, py) >= 0)
+                      & (_plane(qk, 6, px, py) >= 0))
+            zz, win = torch.where(inside, _plane(qk, 9, px, py), 0.0).max(0)
+            pw = qk[win, 0]  # (P, 24)
+            hit = zz > 0
+            acc = [torch.where(hit, a, 0.0).reshape(y1 - y0 + 1, x1 - x0 + 1)
+                   for a in (zz, *(_plane(pw, i, px[0], py[0]) for i in (12, 15, 18)))]
+            for out, a in zip((z, r, g, bl), acc):
+                out[s, y0:y1 + 1, x0:x1 + 1] = a
     return rc._finish(z, r, g, bl)
+
+
+# Frames for the adversarial faces: 50x70 clips tiles, sub-tiles and warp
+# rectangles on both axes; 64x160 and 40x330 leave the cols kernel's last
+# 128-px column one whole warp and (40x330) one clipped to 10 columns, the
+# rest of it outside the image.
+WALK_FRAMES = ((50, 70), (64, 160), (40, 330))
+
+
+def _walk_binnings(kernel, bbox, ok, size, on_mesh):
+    """The binned inputs of ``kernel`` to check at one frame: every span
+    the port uses (sorted), the one packed binning (cols), caps that drop
+    faces and one that does not (top-k)."""
+    if kernel == "sorted":
+        return [rc.bin_faces_sorted(bbox, ok, size, *spans)
+                for spans in (((4, 2), (8, 3), (2, 1)) if on_mesh else ((1, 1),))]
+    if kernel == "cols":
+        return [rc.bin_faces_packed(bbox, ok, size)]
+    binned = [rc.bin_faces_topk(bbox, ok, size, cap) for cap in (8, 48, 512)]
+    assert bool((binned[0][1] == 8).any())  # some tiles drop faces
+    return binned
+
+
+def _check_culled_walk(kernel, mesh, seed, cull):
+    # The kernel's cull and walk order, emulated, give the plain version's
+    # output bit for bit on a mesh and on the cull's adversarial faces.
+    (_, _, _), (params, bbox, ok) = _pack_both(mesh, _poses(2, seed, 0.45), cull)
+    cases = [(*map(torch.from_numpy, (params, bbox, ok)), (H, W), True)]
+    p, bb = _cull_faces(seed)
+    frames = WALK_FRAMES[:1] if kernel == "sorted" else WALK_FRAMES
+    cases += [(p, bb, torch.ones(p.shape[:2], dtype=torch.bool), f, False) for f in frames]
+    for p, bb, o, (h, w), on_mesh in cases:
+        for binned in _walk_binnings(kernel, bb, o, (h, w), on_mesh):
+            want = PLAIN[kernel](p, *binned, h, w)
+            got = _culled_walk(kernel, p, *binned, h, w)
+            assert (want[1] > 0).any()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mesh,seed,cull", CASES)
 def test_sorted_culled_walk_matches_plain_bit_for_bit(mesh, seed, cull):
-    # The kernel's cull and walk order, emulated, give the plain version's
-    # output bit for bit on a mesh (every span the port uses) and on the
-    # cull's adversarial faces.
-    (_, _, _), (params, bbox, ok) = _pack_both(mesh, _poses(2, seed, 0.45), cull)
-    params, bbox, ok = map(torch.from_numpy, (params, bbox, ok))
-    cases = [(params, bbox, ok, (H, W), spans) for spans in ((4, 2), (8, 3), (2, 1))]
-    p, bb = _cull_faces(seed)
-    cases.append((p, bb, torch.ones(p.shape[:2], dtype=torch.bool), (50, 70), (1, 1)))
-    for p, bb, o, (h, w), spans in cases:
-        binned = rc.bin_faces_sorted(bb, o, (h, w), *spans)
-        want = rc.raster_sorted_ref(p, *binned, h, w)
-        got = _culled_walk(p, *binned, h, w)
-        assert (want[1] > 0).any()
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+    _check_culled_walk("sorted", mesh, seed, cull)
+
+
+@pytest.mark.parametrize("mesh,seed,cull", CASES)
+def test_cols_culled_walk_matches_plain_bit_for_bit(mesh, seed, cull):
+    _check_culled_walk("cols", mesh, seed, cull)
+
+
+@pytest.mark.parametrize("mesh,seed,cull", CASES)
+def test_topk_culled_walk_matches_plain_bit_for_bit(mesh, seed, cull):
+    _check_culled_walk("topk", mesh, seed, cull)
+
+
+def test_cols_walk_lists_every_live_warp():
+    # At 40x330 the cols kernel's third column is 74 pixels wide: two whole
+    # warp rectangles, one clipped to 10 columns, one outside the image.
+    # Every live warp, and no other, gets a list, and the adversarial
+    # faces' huge ones put a global range behind the third column's.
+    p, bb = _cull_faces(0)
+    face_ids, starts, glob = rc.bin_faces_packed(bb, torch.ones(p.shape[:2], dtype=torch.bool),
+                                                 (40, 330))
+    assert int(glob[0, 3]) > int(glob[0, 2]) > 0  # the third column's global range
+    lists = list(_cols_warp_lists(face_ids[0], starts[0], glob[0], 40, 330))
+    assert len(lists) == 5 * 11  # 5 sub-tile rows x (4 + 4 + 3) live warps
+    assert max(x0 for x0, _, _ in lists) == 320
+    n_glob = int(glob[0, 3] - glob[0, 2])
+    assert all(len(ids) >= n_glob for x0, _, ids in lists if x0 >= 256)
+
+
+@pytest.mark.parametrize("kernel", ["sorted", "cols", "topk"])
+def test_empty_lists_give_background(kernel):
+    # One small face in the top-left corner of a 64x300 frame: every other
+    # sub-tile and tile has an empty range (and there is no global list),
+    # and a top-k tile a zero count; their pixels come out as background,
+    # in the plain version and in the emulated walk alike.
+    xy = torch.tensor([[2.0, 1.0], [9.0, 2.0], [4.0, 6.0]])
+    corners = tuple((xy[None, None, i, 0], xy[None, None, i, 1]) for i in range(3))
+    one = torch.ones((1, 1))
+    params, bbox, ok = rc._plane_pack(corners, (one, one, one), ((one,) * 3,) * 3,
+                                      torch.ones((1, 1), dtype=torch.bool))
+    h, w = 64, 300
+    binned = {"sorted": lambda: rc.bin_faces_sorted(bbox, ok, (h, w)),
+              "cols": lambda: rc.bin_faces_packed(bbox, ok, (h, w)),
+              "topk": lambda: rc.bin_faces_topk(bbox, ok, (h, w), 4)}[kernel]()
+    ranges = binned[1]  # starts, or the top-k counts
+    assert int(ranges.max()) == 1 and int((ranges == 0).sum()) >= 1
+    want = PLAIN[kernel](params, *binned, h, w)
+    got = _culled_walk(kernel, params, *binned, h, w)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    rgb, depth = got
+    assert (depth[0, :8, :16] > 0).any()
+    assert not depth[0, 8:].any() and not depth[0, :, 16:].any()
+    assert not rgb[0, :, 8:].any() and not rgb[0, :, :, 16:].any()
 
 
 def test_wrappers_dispatch_by_device():
