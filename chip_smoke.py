@@ -61,6 +61,28 @@ Phases, one line each (any failure raises and the script exits nonzero):
    run's assets and slot count, the chunked one z-merging two cols chunks
    (raster tolerance), ``refine_poses`` on the textured headline assets
    (atol 1e-3).
+10. Serving: ``PoseRefinerService`` at the flagship config
+   (``synthetic_all_c2f``: four classes of at most 576 faces, the sorted
+   kernel's route; 480x640, K=4 of which 2 coarse, bf16) with a device
+   batch of 128, loaded from a port checkpoint of random weights.  8
+   clients send one 32-pose request each while 4 send eight 1-pose
+   requests each; every result against a direct ``refine_poses`` on the
+   same rows (atol 1e-3), 1-pose latency p50/p99, 4 sorted launches per
+   device batch.  Then 4 clients x 4 requests of 128 poses: the service's
+   poses/s against the direct call's, and the worker's host time per
+   batch (stacking 128 frames, copying them to the card) against its
+   refine time.  Last, the service's model and flagship assets card
+   against CPU at float32 (the sorted kernel, atol 1e-3).
+11. Selection and tracking on the headline assets (the cols kernel):
+   ``refine_multi_hypothesis`` at B=32 x 4 hypotheses (K + 1 cols
+   launches; ``select_margin=inf`` returns hypothesis 0 bit for bit);
+   ``refine_video`` over 8 shared frames of a 32-object scene, plain and
+   with recovery armed (half the tracks start 8 cm off; the frames that
+   re-acquire and the armed run's peak memory); then card against CPU at
+   float32: ``score_poses`` (atol 1e-4, with and without observed depth),
+   ``select_hypotheses`` on given hypotheses at margin 0 (the same
+   winners, at least one not hypothesis 0) and plain ``refine_video``
+   (atol 1e-3).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -682,6 +704,324 @@ def phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls):
     phase_parity(model_f32, tex_assets, obs, init, ks, cls, case="refine_poses_textured")
 
 
+def _percentile(xs, q):
+    """The nearest-rank ``q``-th percentile of ``xs``."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, round(q / 100 * (len(xs) - 1)))]
+
+
+def _serve_all(svc, calls):
+    """Run ``calls`` (one list of request thunks per client thread) on
+    client threads at once -> (per-thread lists of (result, seconds), wall
+    seconds).  Any error of any request is raised."""
+    import threading
+
+    results = [[] for _ in calls]
+    errors = []
+
+    def client(i):
+        try:
+            for fn in calls[i]:
+                t0 = time.perf_counter()
+                out = fn()
+                results[i].append((out, time.perf_counter() - t0))
+        except Exception as e:  # raised below, on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(calls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"a service request failed: {errors or 'client timed out'}")
+    return results, wall
+
+
+def phase_service(dev, card, rc, counts):
+    """PoseRefinerService at the flagship config (synthetic_all_c2f: four
+    procedural classes of at most 576 faces, the sort route; 480x640, K=4
+    of which 2 coarse, bf16, fc_dim 1024), device batch B=128, from a
+    port checkpoint of the headline's random weights written to a
+    temporary output_dir.  8 clients send one 32-pose request each while
+    4 clients send 8 one-pose requests each (every result against a
+    direct refine_poses on the same rows, atol 1e-3); then 4 clients x 4
+    requests of 128 poses for throughput, against the direct call's
+    poses/s on one batch; last, the service's model and assets card
+    against CPU at float32."""
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.refine import refine_poses
+    from deepim_tpu_torch.serve import PoseRefinerService
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    try:
+        import yaml  # noqa: F401
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = config_from_dict({**hl.SERVE_CONFIG, "output_dir": out_dir})
+        weights = hl.random_model(4).state_dict()
+        save_checkpoint(checkpoint_dir(cfg), 1, weights)
+        t0 = time.perf_counter()
+        svc = PoseRefinerService(cfg, load_checkpoint=True)
+        setup_s = time.perf_counter() - t0
+    try:
+        loaded = svc.model.state_dict()
+        if svc.step != 1 or any(not torch.equal(loaded[k].cpu(), v) for k, v in weights.items()):
+            raise AssertionError("the service did not load its checkpoint")
+        if svc.device != dev or svc.assets.tri_pos.device != dev:
+            raise AssertionError(f"the service is on {svc.device}, not {dev}")
+        faces = svc.assets.tri_pos.shape[2]
+        log("serving", setup="service", yaml_importable=has_yaml, setup_s=setup_s,
+            step=svc.step, classes=svc.names, faces=faces, lod=svc.assets.lod is not None,
+            batch=svc.batch, iters=svc.num_iters, coarse_iters=cfg.test.coarse_iters)
+        if faces >= rc._COLS_MIN_FACES_CROP:
+            raise AssertionError("the flagship classes should take the sort route")
+
+        obs, init, ks, cls = hl.headline_inputs(dev, svc.assets.num_classes, hl.B)
+        host = [t.cpu().numpy() for t in (obs, init, ks, cls)]
+
+        def direct():
+            return refine_poses(svc.model, svc.assets, obs, init, ks, cls, num_iters=svc.num_iters,
+                                out_size=hl.SIZE, coarse_iters=cfg.test.coarse_iters)
+
+        ref = direct().cpu().numpy()
+
+        def request(rows):  # a slice: the client sends views, as a caller's batch would be
+            return lambda: (rows, svc.refine(*(a[rows] for a in host)))
+
+        calls = [[request(slice(32 * i % hl.B, 32 * i % hl.B + 32))] for i in range(8)]
+        calls += [[request(slice((8 * j + r) % hl.B, (8 * j + r) % hl.B + 1)) for r in range(8)]
+                  for j in range(4)]
+        before = copy.copy(svc.stats)
+        rc.reset_launches()
+        results, wall = _serve_all(svc, calls)
+        counts["service"] = dict(rc.LAUNCHES)
+        batches = svc.stats.device_batches - before.device_batches
+        err = max(float(np.abs(out - ref[rows]).max())
+                  for res in results for (rows, out), _ in res)
+        single = [s * 1e3 for res in results[8:] for _, s in res]
+        log("serving", run="mixed", requests=sum(map(len, calls)),
+            poses=sum(len(out) for res in results for (_, out), _ in res),
+            device_batches=batches, padded_slots=svc.stats.padded_slots - before.padded_slots,
+            launches=counts["service"], max_abs_err_vs_direct=err, atol=PARITY_ATOL,
+            one_pose_latency_ms_p50=_percentile(single, 50),
+            one_pose_latency_ms_p99=_percentile(single, 99), wall_s=wall)
+        if not err <= PARITY_ATOL:
+            raise AssertionError("the service disagrees with a direct refine_poses")
+        if (counts["service"]["raster_sorted"] != hl.K_ITERS * batches
+                or counts["service"]["raster_cols"]):
+            raise AssertionError(f"service batches missed the sorted kernel: {counts['service']}")
+
+        # Throughput: 4 clients x 4 requests of B poses, against the direct
+        # call on one batch already on the card.
+        full = slice(None)
+        _serve_all(svc, [[request(full)] * 4] * 4)  # warm
+        before = copy.copy(svc.stats)
+        _, wall = _serve_all(svc, [[request(full)] * 4] * 4)
+        batches = svc.stats.device_batches - before.device_batches
+        host_ms = (svc.stats.host_seconds - before.host_seconds) / batches * 1e3
+        refine_ms = (svc.stats.refine_seconds - before.refine_seconds) / batches * 1e3
+        direct_s = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            direct()
+            torch.cuda.synchronize()
+            direct_s.append(time.perf_counter() - t0)
+        # The worker's host work, in parts: stacking B frames, copying them.
+        t0 = time.perf_counter()
+        stacked = np.stack(list(host[0]))
+        t1 = time.perf_counter()
+        torch.from_numpy(stacked).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        service_rate = 16 * hl.B / wall
+        direct_rate = hl.B / statistics.median(direct_s)
+        log("serving", run="throughput", requests=16, poses=16 * hl.B, device_batches=batches,
+            poses_per_s_service=service_rate, poses_per_s_direct_median4=direct_rate,
+            service_over_direct=service_rate / direct_rate,
+            worker_host_ms_per_batch=host_ms, worker_refine_ms_per_batch=refine_ms,
+            host_share=host_ms / (host_ms + refine_ms), frames_stack_ms=(t1 - t0) * 1e3,
+            frames_copy_ms=(t2 - t1) * 1e3, frames_bytes_per_batch=stacked.nbytes,
+            direct_ms=[t * 1e3 for t in direct_s], card=repr(card))
+
+        # The flagship meshes on the sort route, card against CPU at float32.
+        model_f32 = copy.deepcopy(svc.model)
+        model_f32.dtype = torch.float32
+        rc.reset_launches()
+        phase_parity(model_f32, svc.assets, obs, init, ks, cls, case="service_flagship")
+        if rc.LAUNCHES["raster_sorted"] != hl.K_ITERS or rc.LAUNCHES["raster_cols"]:
+            raise AssertionError(f"the flagship parity missed the sorted kernel: {rc.LAUNCHES}")
+    finally:
+        svc.close()
+
+
+def video_scene(dev, assets, b, frames, generator_seed):
+    """A shared stream of ``frames`` 480x640 frames with ``b`` objects of
+    the headline classes drifting in x (each frame one render_scene, so
+    the objects occlude each other) -> (frames (T, H, W, 3), depths (T,
+    H, W), frame-0 poses (b, 3, 4), classes, ks)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data.pairs import sample_poses_in_frustum
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.refine import render_scene
+
+    g = torch.Generator(device=dev).manual_seed(generator_seed)
+    k = make_intrinsics(*hl.LINEMOD_K, device=dev)
+    gt = sample_poses_in_frustum(g, b, k, hl.SIZE, z_range=(0.6, 1.2))
+    cls = torch.randint(0, assets.num_classes, (b,), generator=g, device=dev)
+    rgb, depth = [], []
+    for t in range(frames):
+        poses = gt.clone()
+        poses[:, 0, 3] += 0.003 * t
+        r, d = render_scene(assets, cls[None], poses[None], torch.ones((1, b), dtype=torch.bool,
+                            device=dev), k[None], hl.SIZE)
+        rgb.append(r[0])
+        depth.append(d[0])
+    return torch.stack(rgb), torch.stack(depth), gt, cls, k.expand(b, 3, 3).contiguous()
+
+
+def phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts):
+    """refine_multi_hypothesis at B=32 x 4 hypotheses (128 renders a step,
+    the headline protocol, cols route), and refine_video over T=8 shared
+    frames at B=32 (4 iterations, then 2 a frame), plain and with
+    recovery armed; each run's launches counted from zero.  Then card
+    against CPU at float32, TF32 off: score_poses (B=8, with and without
+    observed depth), select_hypotheses on the same given hypotheses (4
+    images x 4, margin 0, at least one challenger must win), plain
+    refine_video (T=3, B=8)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data.pairs import perturb_poses
+    from deepim_tpu_torch.refine import (
+        draw_hypotheses, gather_class, refine_multi_hypothesis, refine_poses, refine_video,
+        score_poses, select_hypotheses)
+
+    b, nh = 32, 4
+    obs, init, ks, cls = hl.headline_inputs(dev, assets.num_classes, b)
+    common = dict(num_iters=hl.K_ITERS, out_size=hl.SIZE, coarse_iters=hl.COARSE_ITERS)
+    refine_multi_hypothesis(model, assets, obs, init, ks, cls,
+                            torch.Generator(device=dev).manual_seed(hl.SEED), **common)  # warm
+    torch.cuda.synchronize()
+    rc.reset_launches()
+    t0 = time.perf_counter()
+    best, scores = refine_multi_hypothesis(model, assets, obs, init, ks, cls,
+                                           torch.Generator(device=dev).manual_seed(hl.SEED),
+                                           num_hypotheses=nh, **common)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    counts["multi_hypothesis"] = dict(rc.LAUNCHES)
+    hyps = draw_hypotheses(torch.Generator(device=dev).manual_seed(hl.SEED), init, nh)
+    best_inf, _ = select_hypotheses(model, assets, obs, hyps, ks, cls,
+                                    select_margin=float("inf"), **common)
+    refined0 = refine_poses(model, assets, obs.repeat(nh, 1, 1, 1), hyps, ks.repeat(nh, 1, 1),
+                            cls.repeat(nh), **common)[:b]
+    picked = (best - refined0).abs().amax((1, 2)) > 0
+    log("multi_hypothesis", batch=b, hypotheses=nh, renders_per_step=b * nh,
+        launches=counts["multi_hypothesis"], scores_finite=bool(torch.isfinite(scores).all()),
+        challengers_picked=int(picked.sum()), call_ms=call_ms, card=repr(card))
+    if best.shape != (b, 3, 4) or scores.shape != (b, nh) or not torch.isfinite(scores).all():
+        raise AssertionError("refine_multi_hypothesis: wrong shapes or scores not finite")
+    if not torch.equal(best_inf, refined0):
+        raise AssertionError("select_margin=inf did not return hypothesis 0 exactly")
+    if counts["multi_hypothesis"]["raster_cols"] < hl.K_ITERS + 1:
+        raise AssertionError(f"multi-hypothesis missed the cols kernel: {counts['multi_hypothesis']}")
+
+    t_frames, iters_first, iters_rest, recover_iters = 8, 4, 2, 4
+    frames, depths, gt, vcls, vks = video_scene(dev, assets, b, t_frames, hl.SEED + 2)
+    g = torch.Generator(device=dev).manual_seed(hl.SEED + 3)
+    init_v = perturb_poses(g, gt, rot_std_deg=5.0, trans_std=(0.005, 0.005, 0.01))
+    init_v[::2, 0, 3] += 0.08  # half the tracks start grossly off
+    video = dict(iters_first=iters_first, iters_rest=iters_rest, out_size=hl.SIZE,
+                 obs_depths=depths)
+    rc.reset_launches()
+    plain = refine_video(model, assets, frames, init_v, vks, vcls, **video)
+    torch.cuda.synchronize()
+    counts["video"] = dict(rc.LAUNCHES)
+    renders = iters_first + (t_frames - 1) * iters_rest
+    ab = gather_class(assets, vcls)
+    sc0 = score_poses(ab, frames[0].expand(b, *hl.SIZE, 3), init_v, vks, hl.SIZE,
+                      obs_depth=depths[0].expand(b, *hl.SIZE))
+    thresh = 0.5 * (sc0[1::2].mean() + sc0[::2].mean()).item()
+    rc.reset_launches()
+    (armed, armed_sc), peak_mib = peak_memory(lambda: refine_video(
+        model, assets, frames, init_v, vks, vcls, recover_threshold=thresh,
+        recover_iters=recover_iters, generator=torch.Generator(device=dev).manual_seed(hl.SEED),
+        **video))
+    counts["video_recovery"] = dict(rc.LAUNCHES)
+    # Each re-acquisition renders recover_iters refine steps and one score.
+    reacquired, rest = divmod(counts["video_recovery"]["raster_cols"] - renders - t_frames,
+                              recover_iters + 1)
+    plain_sc = score_poses(ab, frames[-1].expand(b, *hl.SIZE, 3), plain[-1], vks, hl.SIZE,
+                           obs_depth=depths[-1].expand(b, *hl.SIZE))
+    log("video", batch=b, frames=t_frames, iters_first=iters_first, iters_rest=iters_rest,
+        launches_plain=counts["video"], launches_armed=counts["video_recovery"],
+        threshold=thresh, frames_reacquired=reacquired,
+        last_score_gross_plain=plain_sc[::2].mean().item(),
+        last_score_gross_armed=armed_sc[-1, ::2].mean().item(), armed_peak_mib=peak_mib)
+    for traj in (plain, armed):
+        if traj.shape != (t_frames, b, 3, 4) or not torch.isfinite(traj).all():
+            raise AssertionError("refine_video: wrong shape or poses not finite")
+    if counts["video"]["raster_cols"] != renders or rest or reacquired < 1:
+        raise AssertionError(f"video launches: {counts['video']}, {counts['video_recovery']}")
+
+    # Card against CPU, float32.
+    pb = PARITY_B
+    cpu = torch.device("cpu")
+    model_cpu = copy.deepcopy(model_f32).cpu()
+    assets_cpu = assets.to(cpu)
+    ab = gather_class(assets, vcls[:pb])
+    args = (frames[0].expand(pb, *hl.SIZE, 3), init_v[:pb], vks[:pb])
+    for depth in (None, depths[0].expand(pb, *hl.SIZE)):
+        s_k = score_poses(ab, *args, hl.SIZE, obs_depth=depth).cpu()
+        s_p = score_poses(ab.to(cpu), *(a.cpu() for a in args), hl.SIZE,
+                          obs_depth=None if depth is None else depth.cpu())
+        diff = (s_k - s_p).abs().max().item()
+        log("parity", case="score_poses", depth=depth is not None, batch=pb,
+            max_abs_err=diff, atol=1e-4)
+        if not diff <= 1e-4 or not torch.isfinite(s_p).all():
+            raise AssertionError("score_poses on the card disagrees with the CPU path")
+    # Hypothesis 0 starts 5 cm off and the margin is 0, so that challengers
+    # win and the gather of a non-zero winner runs on both sides.
+    nb = 4
+    hyps = draw_hypotheses(torch.Generator(device=dev).manual_seed(hl.SEED), init[:nb], nh)
+    hyps[:nb, 0, 3] += 0.05
+    sel = (obs[:nb], hyps, ks[:nb], cls[:nb])
+    best_k, sc_k = select_hypotheses(model_f32, assets, *sel, **common, select_margin=0.0)
+    best_p, sc_p = select_hypotheses(model_cpu, assets_cpu, *(a.cpu() for a in sel), **common,
+                                     select_margin=0.0)
+    diff = (best_k.cpu() - best_p).abs().max().item()
+    winners = sc_p.argmax(1)
+    same = torch.equal(sc_k.cpu().argmax(1), winners)
+    log("parity", case="select_hypotheses", images=nb, hypotheses=nh, select_margin=0.0,
+        max_pose_diff=diff, atol=PARITY_ATOL,
+        max_score_diff=(sc_k.cpu() - sc_p).abs().max().item(), same_winners=same,
+        winners=winners.tolist(), nonzero_winners=int((winners != 0).sum()))
+    if not diff <= PARITY_ATOL or not same:
+        raise AssertionError("select_hypotheses on the card disagrees with the CPU path")
+    if not (winners != 0).any():
+        raise AssertionError("select_hypotheses kept hypothesis 0 everywhere: no challenger "
+                             "was gathered")
+    vargs = (frames[:3], init_v[:pb], vks[:pb], vcls[:pb])
+    traj_k = refine_video(model_f32, assets, *vargs, iters_first=2, iters_rest=1,
+                          out_size=hl.SIZE).cpu()
+    traj_p = refine_video(model_cpu, assets_cpu, *(a.cpu() for a in vargs), iters_first=2,
+                          iters_rest=1, out_size=hl.SIZE)
+    diff = (traj_k - traj_p).abs().max().item()
+    moved = (traj_p[-1] - init_v[:pb].cpu()).abs().max().item()
+    log("parity", case="refine_video", frames=3, batch=pb, max_pose_diff=diff,
+        atol=PARITY_ATOL, moved=moved)
+    if not diff <= PARITY_ATOL or not moved > 1e-3:
+        raise AssertionError("refine_video on the card disagrees with the CPU path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -720,7 +1060,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-9 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-11 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -791,6 +1131,10 @@ def run_phases(dev, card: str) -> list[dict]:
     counts.update(phase_synthesis(dev, card, rc, runs, record))
     counts.update(phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls))
     phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls)
+
+    # This slice: the service, multi-hypothesis selection and tracking.
+    phase_service(dev, card, rc, counts)
+    phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts)
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -11,6 +11,13 @@ pose head -> untangled SE(3) compose), on untextured and textured assets;
 the multi-object scene render (:func:`deepim_tpu_torch.refine.render_scene`)
 and on-device pair synthesis (:mod:`deepim_tpu_torch.data.synthetic`); and
 the renderer's entry points with every binning route, face chunking and
-the deferred-texture pass.  All three rasterizer kernels are hand-written
-CUDA (``raster/csrc``), built at first use on the card.
+the deferred-texture pass; multi-hypothesis selection
+(:func:`deepim_tpu_torch.refine.refine_multi_hypothesis`, its
+:func:`~deepim_tpu_torch.refine.score_poses`) and video tracking
+(:func:`deepim_tpu_torch.refine.refine_video`); and the serving path:
+:class:`deepim_tpu_torch.serve.PoseRefinerService` with the config
+(:func:`deepim_tpu_torch.config.config_from_dict`), the asset loader, the
+model builder and torch checkpoints that carry weights trained by the
+JAX package.  All three rasterizer kernels are hand-written CUDA
+(``raster/csrc``), built at first use on the card.
 """

@@ -1,7 +1,7 @@
 """SE(3) / rotation math for pose refinement (torch).
 
-Port of ``deepim_tpu/geometry``: rotations, se3, the untangled delta pose
-and the (numpy) symmetry sets.
+Port of ``deepim_tpu/geometry``: rotations, se3, the untangled delta pose,
+the pose error metrics and the (numpy) symmetry sets.
 """
 
 from deepim_tpu_torch.geometry.delta_pose import DeltaPose, apply_delta, calc_delta
@@ -12,6 +12,21 @@ from deepim_tpu_torch.geometry.rotations import (
     quat2mat,
     quat_normalize,
     random_quat,
+    rotation_angle,
+)
+from deepim_tpu_torch.geometry.pose_errors import (
+    add_auc,
+    add_error,
+    adds_error,
+    proj2d_error,
+    rot_error_deg,
+    trans_error,
 )
 from deepim_tpu_torch.geometry.se3 import project_points, se3_from_rt, transform_points
-from deepim_tpu_torch.geometry.symmetry import identity_pose, rot_z_syms, sym_set
+from deepim_tpu_torch.geometry.symmetry import (
+    LINEMOD_SYMMETRIC,
+    YCB_SYMMETRIC,
+    identity_pose,
+    rot_z_syms,
+    sym_set,
+)

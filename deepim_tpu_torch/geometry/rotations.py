@@ -1,7 +1,8 @@
 """Rotation parameterizations: quaternion / matrix / euler.
 
 Port of ``deepim_tpu/geometry/rotations.py`` (``quat_normalize``,
-``quat2mat``, ``mat2quat``, ``euler2mat``, ``euler2quat``, ``random_quat``).
+``quat2mat``, ``mat2quat``, ``euler2mat``, ``euler2quat``, ``random_quat``,
+``rotation_angle``).
 
 Conventions: quaternions are ``(w, x, y, z)``, scalar-first; euler angles are
 static ``sxyz`` (``R = Rz(az) @ Ry(ay) @ Rx(ax)``).  Every function maps
@@ -93,3 +94,9 @@ def random_quat(generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
     q = torch.randn(shape + (4,), generator=generator, device=generator.device)
     q = quat_normalize(q)
     return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def rotation_angle(m: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle (radians) of rotation matrix(es) (..., 3, 3)."""
+    tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
+    return torch.arccos(((tr - 1.0) * 0.5).clamp(-1.0, 1.0))

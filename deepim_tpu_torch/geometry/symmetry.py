@@ -1,8 +1,9 @@
 """Object symmetry transform sets (numpy, host-side).
 
-Copy of the parts of ``deepim_tpu/geometry/symmetry.py`` that
-``build_assets`` needs (``identity_pose``, ``rot_z_syms``, ``sym_set`` and
-the ``CONTINUOUS_Z*`` constants).  A copy and not an import: importing the
+Copy of ``deepim_tpu/geometry/symmetry.py``: ``identity_pose``,
+``rot_z_syms``, ``sym_set``, the ``CONTINUOUS_Z*`` constants and the
+per-dataset tables ``load_assets_and_names`` reads (``LINEMOD_SYMMETRIC``,
+``PROCEDURAL_SYMMETRIC``, ``YCB_SYMMETRIC``).  A copy and not an import: importing the
 reference module runs ``deepim_tpu/geometry/__init__.py``, which imports
 jax.  ``tests/test_torch_assets.py`` holds the copy bit-identical.
 """
@@ -49,3 +50,27 @@ def sym_set(transforms, max_syms: int) -> np.ndarray:
         raise ValueError(f"{base.shape[0]} syms > budget {max_syms}")
     pad = np.tile(base[:1], (max_syms - base.shape[0], 1, 1))
     return np.concatenate([base, pad], axis=0)
+
+
+# LINEMOD's standard protocol treats eggbox and glue as 2-fold symmetric
+# about z.
+LINEMOD_SYMMETRIC = {"eggbox": rot_z_syms(2), "glue": rot_z_syms(2)}
+# Procedural objects continuously symmetric about z (the icosphere's
+# position-coded colours break its symmetry).
+PROCEDURAL_SYMMETRIC = {"torus": CONTINUOUS_Z, "cylinder": CONTINUOUS_Z,
+                        "cone": CONTINUOUS_Z, "capsule": CONTINUOUS_Z}
+# YCB's symmetric classes, under both names: the bare class and the
+# numbered release directory (024_bowl).
+_YCB_SYMS = {
+    "bowl": CONTINUOUS_Z,
+    "wood_block": rot_z_syms(2),
+    "large_clamp": rot_z_syms(2),
+    "extra_large_clamp": rot_z_syms(2),
+    "foam_brick": rot_z_syms(2),
+}
+_YCB_PREFIX = {"bowl": "024", "wood_block": "036", "large_clamp": "051",
+               "extra_large_clamp": "052", "foam_brick": "061"}
+YCB_SYMMETRIC = {
+    **_YCB_SYMS,
+    **{f"{_YCB_PREFIX[n]}_{n}": s for n, s in _YCB_SYMS.items()},
+}

@@ -10,6 +10,10 @@ little noise so the poses move.  The textured variant gives each of the
 four meshes a 64x64 procedural texture (``texturize(mesh, seed=i)``), a
 protocol of the port only.  ``chip_smoke.py`` and
 :mod:`deepim_tpu_torch.profile_headline` drive the port through it.
+
+``SERVE_CONFIG`` is the serving protocol: the flagship experiment
+``experiments/cfgs/synthetic_all_c2f.yaml`` as a dict (the card's machine
+has no PyYAML), its device batch raised to the bench's B.
 """
 
 from __future__ import annotations
@@ -34,6 +38,17 @@ SEED = 7
 LINEMOD_K = (572.4114, 573.5704, 325.2611, 242.049)  # fx, fy, cx, cy
 TEXTURE_SIZE = (64, 64)
 HEAD_SCALE = 0.02  # noise on the zero pose heads: poses move a little per step
+
+# experiments/cfgs/synthetic_all_c2f.yaml with test.batch_size = B.
+SERVE_CONFIG = {
+    "experiment": "synthetic_all_c2f",
+    "dataset": {"name": "synthetic", "objects": ["box", "icosphere", "cylinder", "torus"]},
+    "train": {"batch_size": 32, "num_steps": 34000, "optimizer": "adam", "lr": 5.0e-5,
+              "weight_decay": 0.0, "warmup_steps": 0, "lr_decay_steps": [33000],
+              "train_iter": 2, "w_flow": 0.05, "w_mask": 0.05, "coarse_fraction": 0.5,
+              "sym_aware_pm": False, "log_every": 100, "checkpoint_every": 2000},
+    "test": {"test_iter": 4, "coarse_iters": 2, "batch_size": B},
+}
 
 
 def card() -> str:

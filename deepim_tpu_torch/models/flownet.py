@@ -85,7 +85,7 @@ class DeepIMFlowNet(nn.Module):
         if quant != "none":
             raise NotImplementedError(
                 f"quant={quant!r}: int8 inference is not ported yet "
-                "(ROADMAP queue A, int8)")
+                "(ROADMAP A10)")
         if rot_type not in ("quat", "euler"):
             raise ValueError(rot_type)
         if head_grid is None and input_size is None:

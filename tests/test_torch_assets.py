@@ -177,3 +177,110 @@ def test_entry_points_default_to_the_card():
     assert "device" not in inspect.signature(random_quat).parameters
     q = random_quat(torch.Generator().manual_seed(0), (3,))
     assert q.device.type == "cpu" and q.shape == (3, 4)
+
+
+NEW_BUILDERS = [
+    ("cone_mesh", {}),
+    ("cone_mesh", {"radius": 0.03, "height": 0.07, "segments": 13}),
+    ("capsule_mesh", {}),
+    ("capsule_mesh", {"segments": 12, "rings": 3}),
+    ("prism_mesh", {}),
+    ("prism_mesh", {"n_sides": 3, "rx": 0.02, "ry": 0.05}),
+    ("star_mesh", {}),
+    ("star_mesh", {"points": 7, "r_inner": 0.03}),
+    ("frustum_mesh", {}),
+    ("tube_mesh", {}),
+    ("lshape_mesh", {}),
+    ("lshape_mesh", {"leg": 0.08, "width": 0.02}),
+]
+
+
+@pytest.mark.parametrize("name,kwargs", NEW_BUILDERS)
+def test_zoo_builders_bit_identical(name, kwargs):
+    mt, mj = getattr(mesh_t, name)(**kwargs), getattr(mesh_j, name)(**kwargs)
+    _same_mesh(mt, mj)
+    assert mt.diameter == mj.diameter
+
+
+def test_polygon_helpers_bit_identical():
+    star = np.stack([np.cos(np.pi * np.arange(10) / 5), np.sin(np.pi * np.arange(10) / 5)], -1)
+    star *= np.where(np.arange(10) % 2 == 0, 0.05, 0.02)[:, None]
+    assert mesh_t._triangulate_polygon(star) == mesh_j._triangulate_polygon(star)
+    _same_mesh(mesh_t.extrude_polygon_mesh(star, 0.03), mesh_j.extrude_polygon_mesh(star, 0.03))
+    parts = [mesh_t.box_mesh((0.1, 0.02, 0.02)), mesh_t.cone_mesh(), mesh_t.torus_mesh()]
+    _same_mesh(mesh_t.merge_meshes(parts), mesh_j.merge_meshes(parts))
+
+
+def test_procedural_meshes_bit_identical():
+    # From 20,000 faces the reference computes vertex normals in its C++
+    # helper, whose sums round differently from the numpy path the copy
+    # always runs: those normals agree to two float32 ulps of a unit vector.
+    assert list(mesh_t.PROCEDURAL_MESHES) == list(mesh_j.PROCEDURAL_MESHES)
+    native = 0
+    for name, make in mesh_t.PROCEDURAL_MESHES.items():
+        mt, mj = make(), mesh_j.PROCEDURAL_MESHES[name]()
+        if mj.num_faces >= mesh_j._NATIVE_MIN_FACES:
+            native += 1
+            np.testing.assert_allclose(mt.normals, mj.normals, rtol=0, atol=2.0**-22)
+            mt = mesh_t.Mesh(mt.vertices, mt.faces, mt.colors, mj.normals)
+        _same_mesh(mt, mj)
+    assert native == 2  # the two subdivision-5 icospheres
+
+
+@pytest.mark.parametrize("seed,texture_prob", [(0, 0.5), (5, 1.0)])
+def test_random_mesh_zoo_bit_identical(seed, texture_prob):
+    assert mesh_t.ZOO_FAMILIES == mesh_j.ZOO_FAMILIES
+    zt = mesh_t.random_mesh_zoo(14, seed, texture_prob=texture_prob)
+    zj = mesh_j.random_mesh_zoo(14, seed, texture_prob=texture_prob)
+    assert list(zt) == list(zj)
+    assert any(m.texture is not None for m in zt.values())
+    for name in zt:
+        _same_mesh(zt[name], zj[name])
+
+
+def test_symmetry_tables_equal():
+    for table in ("LINEMOD_SYMMETRIC", "PROCEDURAL_SYMMETRIC", "YCB_SYMMETRIC",
+                  "_YCB_SYMS", "_YCB_PREFIX"):
+        t, j = getattr(sym_t, table), getattr(sym_j, table)
+        assert list(t) == list(j), table
+        for key in t:
+            if isinstance(t[key], str) or isinstance(j[key], str):
+                assert t[key] == j[key], (table, key)
+            else:
+                np.testing.assert_array_equal(t[key], j[key], err_msg=f"{table}[{key}]")
+
+
+@pytest.mark.parametrize("yaml_name,eval_set", [
+    ("synthetic_all_c2f.yaml", False),
+    ("modelnet_small.yaml", False),
+    ("modelnet_small.yaml", True),
+    ("synthetic_textured.yaml", False),
+])
+def test_load_assets_and_names_match(yaml_name, eval_set):
+    from deepim_tpu.cli.train import load_assets_and_names as load_j
+    from deepim_tpu.config import update_config as update_j
+    from deepim_tpu_torch.cli.train import load_assets_and_names as load_t
+    from deepim_tpu_torch.config import update_config as update_t
+
+    path = f"experiments/cfgs/{yaml_name}"
+    at, names_t, sym_flags_t = load_t(update_t(path), eval_set=eval_set, device="cpu")
+    aj, names_j, sym_flags_j = load_j(update_j(path), eval_set=eval_set)
+    assert names_t == names_j and sym_flags_t == sym_flags_j
+    assert any(sym_flags_t)
+    _assert_assets_equal(at, aj)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"dataset": {"name": "lm6d", "objects": ["ape"]}},
+    {"dataset": {"name": "ycb", "objects": ["bowl"]}},
+    {"dataset": {"name": "modelnet", "cad_dir": "meshes", "eval_objects": ["torus"]}},
+])
+def test_load_assets_from_disk_is_not_ported(overrides):
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import config_from_dict
+
+    with pytest.raises(NotImplementedError, match="A13"):
+        load_assets_and_names(config_from_dict(overrides), eval_set=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="A13"):
+        load_assets_and_names(config_from_dict(
+            {"dataset": {"name": "lm6d"}, "experiment": "lm6d"}), device="cpu")

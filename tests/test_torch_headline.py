@@ -64,3 +64,27 @@ def test_random_model_heads_move_poses():
     again = hl.random_model(num_classes=4, dtype=torch.float32)
     for (n, p), (_, q) in zip(model.state_dict().items(), again.state_dict().items()):
         torch.testing.assert_close(p, q, rtol=0, atol=0, msg=n)
+
+
+def test_serve_config_is_the_flagship_yaml():
+    # chip_smoke.py serves this dict (the card's machine has no PyYAML): it
+    # must be synthetic_all_c2f.yaml with the device batch raised to B.
+    import dataclasses
+
+    import yaml
+
+    from deepim_tpu.config import update_config
+    from deepim_tpu_torch.config import config_from_dict
+
+    path = "experiments/cfgs/synthetic_all_c2f.yaml"
+    with open(path) as f:
+        expected = yaml.safe_load(f)
+    expected["test"]["batch_size"] = hl.B
+    assert hl.SERVE_CONFIG == expected
+    cfg = config_from_dict(hl.SERVE_CONFIG)
+    ref = update_config(path)
+    assert cfg.test.batch_size == hl.B and ref.test.batch_size == 32
+    for part in ("network", "dataset", "train"):
+        assert dataclasses.asdict(getattr(cfg, part)) == dataclasses.asdict(getattr(ref, part))
+    assert (cfg.network.input_height, cfg.network.input_width) == hl.SIZE
+    assert (cfg.test.test_iter, cfg.test.coarse_iters) == (hl.K_ITERS, hl.COARSE_ITERS)
