@@ -72,7 +72,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
    poses/s against the direct call's, and the worker's host time per
    batch (stacking 128 frames, copying them to the card) against its
    refine time.  Last, the service's model and flagship assets card
-   against CPU at float32 (the sorted kernel, atol 1e-3).
+   against CPU at float32 (the sorted kernel, atol 1e-3, B=4).
 11. Selection and tracking on the headline assets (the cols kernel):
    ``refine_multi_hypothesis`` at B=32 x 4 hypotheses (K + 1 cols
    launches; ``select_margin=inf`` returns hypothesis 0 bit for bit);
@@ -83,6 +83,27 @@ Phases, one line each (any failure raises and the script exits nonzero):
    ``select_hypotheses`` on given hypotheses at margin 0 (the same
    winners, at least one not hypothesis 0) and plain ``refine_video``
    (atol 1e-3).
+12. Training at the flagship config (``headline.TRAIN_CONFIG``,
+   synthetic_all: B=32, 480x640, ``train_iter`` 2, flow + mask heads, bf16,
+   Adam; four classes of at most 576 faces, the sorted kernel's route):
+   the fused synthesize-and-train step over 20 steps at 480x640 and at the
+   coarse size 240x320, with steps/s, samples/s, peak MiB, its sorted and
+   cols launches per step (1 + ``train_iter`` sorted, 0 cols), model FLOPs
+   counted from the layer shapes and their share of the bf16 dense peak
+   (``mfu``); the ms of its parts (synthesis, network inputs, flow GT,
+   losses forward + backward, optimizer), each timed alone.  Then the
+   micro-overfit of ``tests/test_train.py`` (80 steps on a fixed batch);
+   300 fresh-batch steps of ``synthetic_small.yaml`` through
+   ``cli.train.main`` (mean loss of the first and last 50 steps, which
+   must fall) and ``--resume`` to 350; last, one train step card against
+   CPU at B=2, 480x640 (float32 at train_iter 2: losses and monitors rtol
+   1e-4; the card's float32 gradient within 1e-1 of each leaf's max of
+   its float64 one; float64 at train_iter 1: also the gradient norm, and
+   each gradient within 1e-3 of its leaf's max; float64 at train_iter 2,
+   each iteration's inputs card against CPU printed: each gradient within
+   5e-2 of its leaf's max, and within 1e-3 where the card takes the CPU's
+   zoom box, k_zoom and updated pose; Adam on shared gradients: params
+   within 1e-6).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -95,6 +116,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -107,6 +129,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PARITY_B = 8
+FLAGSHIP_PARITY_B = 4  # the service's flagship parity (8 until the training phase came)
 PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
 RGB_ATOL, DEPTH_ATOL = 2e-2, 1e-3  # the repo's raster tolerance, printed beside
 RASTER_FRAC = 0.002  # card-vs-CPU renders: at most this share of elements off
@@ -428,11 +451,11 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     return record
 
 
-def phase_parity(model_f32, assets, obs, init, ks, cls, **fields):
+def phase_parity(model_f32, assets, obs, init, ks, cls, batch=PARITY_B, **fields):
     """refine_poses with the kernels (card) against the plain versions (CPU)."""
     from deepim_tpu_torch import headline as hl
 
-    sl = slice(0, PARITY_B)
+    sl = slice(0, batch)
     args = (obs[sl], init[sl], ks[sl], cls[sl])
     t0 = time.perf_counter()
     traj_k = hl.run_headline(model_f32, assets, *args, return_all=True).cpu()
@@ -443,7 +466,7 @@ def phase_parity(model_f32, assets, obs, init, ks, cls, **fields):
     t_cpu = time.perf_counter() - t0
     diff = (traj_k - traj_p).abs().max().item()
     moved = (traj_k[-1] - traj_k[0]).abs().max().item()
-    log("parity", **fields, batch=PARITY_B, max_pose_diff=diff, atol=PARITY_ATOL,
+    log("parity", **fields, batch=batch, max_pose_diff=diff, atol=PARITY_ATOL,
         moved=moved, card_s=t_card, cpu_s=t_cpu)
     if not diff <= PARITY_ATOL or not moved > 1e-3:
         raise AssertionError("refine_poses on the card disagrees with the CPU path")
@@ -857,7 +880,8 @@ def phase_service(dev, card, rc, counts):
         model_f32 = copy.deepcopy(svc.model)
         model_f32.dtype = torch.float32
         rc.reset_launches()
-        phase_parity(model_f32, svc.assets, obs, init, ks, cls, case="service_flagship")
+        phase_parity(model_f32, svc.assets, obs, init, ks, cls, batch=FLAGSHIP_PARITY_B,
+                     case="service_flagship")
         if rc.LAUNCHES["raster_sorted"] != hl.K_ITERS or rc.LAUNCHES["raster_cols"]:
             raise AssertionError(f"the flagship parity missed the sorted kernel: {rc.LAUNCHES}")
     finally:
@@ -1022,6 +1046,494 @@ def phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts
         raise AssertionError("refine_video on the card disagrees with the CPU path")
 
 
+# bf16 dense tensor-core peak of one H100 SXM (NVIDIA's data sheet, 700 W).
+BF16_FLOPS_PER_S = 989e12
+TRAIN_STEPS = 20  # timed fused steps at each size
+OVERFIT_STEPS = 80  # tests/test_train.py §test_micro_overfit
+SMALL_STEPS, SMALL_RESUME = 300, 350  # synthetic_small.yaml through cli.train
+TRAIN_PARITY_B = 2
+TRAIN_RTOL, GRAD_FRAC, PARAM_ATOL = 1e-4, 1e-3, 1e-6
+# The card's float32 gradient against its float64 one at train_iter 1:
+# cuDNN's float32 backward missed by 2.78e-2 of a leaf's max (conv6_1) at
+# 480x640 on an H100; a wrong kernel misses by the order of the leaf.
+F32_GRAD_FRAC = 1e-1
+# float64 at train_iter 2, card against CPU: the second iteration's zoom
+# box and k_zoom round one float32 ulp apart by device, and its crop then
+# differs in ~11k depth pixels; the gradient missed by 1.99e-2 of a
+# leaf's max (deconv5) on an H100, and by 1.35e-6 with the CPU's zoom
+# box, k_zoom and pose handed to the card.
+ITER2_GRAD_FRAC = 5e-2
+
+
+def network_flops(model, h: int, w: int) -> tuple[float, float]:
+    """(forward, forward + backward) FLOPs of one sample and iteration,
+    counted from the layer shapes: 2 per multiply-add of every conv,
+    transposed conv and dense layer.  The backward takes twice the
+    forward (input and weight gradients), less conv1's input gradient,
+    which nothing needs."""
+    from deepim_tpu_torch.models.flownet import DECODER, ENCODER, SKIPS
+
+    fwd, sizes = 0.0, {}
+    for name, cout, k, s in ENCODER:
+        h, w = -(-h // s), -(-w // s)
+        sizes[name] = (h, w)
+        flops = 2.0 * getattr(model, name).in_channels * cout * k * k * h * w
+        fwd += flops
+        if name == "conv1":
+            conv1 = flops
+    if model.with_flow or model.with_mask:
+        h, w = sizes["conv6_1"]
+        fwd += 2.0 * model.predict_flow6.in_channels * 2 * 9 * h * w
+        for lvl, cout in DECODER:
+            # a 4x4 transposed conv: 16 taps for every input pixel
+            fwd += 2.0 * getattr(model, f"deconv{lvl}").in_channels * cout * 16 * h * w
+            fwd += 2.0 * 2 * 2 * 16 * h * w
+            h, w = sizes[SKIPS[lvl]]
+            fwd += 2.0 * getattr(model, f"predict_flow{lvl}").in_channels * 2 * 9 * h * w
+        if model.with_mask:
+            fwd += 2.0 * (model.mask_conv.in_channels * 64 + 64) * 9 * h * w
+    for fc in (model.fc1, model.fc2, model.fc_rot, model.fc_trans):
+        fwd += 2.0 * fc.in_features * fc.out_features
+    return fwd, 3.0 * fwd - conv1
+
+
+def phase_training(dev, card, rc, counts):
+    """Training at the flagship config (``headline.TRAIN_CONFIG``,
+    synthetic_all: B=32, 480x640, train_iter 2, flow + mask heads, bf16,
+    Adam): the fused synthesize-and-train step timed over TRAIN_STEPS
+    steps at 480x640 and at the coarse size 240x320, the ms of its parts,
+    its launches, peak memory and model FLOPs; the micro-overfit; a few
+    hundred steps of synthetic_small.yaml through ``cli.train.main`` and
+    its ``--resume``; one train step card against CPU."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.data import synthetic_batch
+    from deepim_tpu_torch.ops.flow_gt import calc_flow
+    from deepim_tpu_torch.ops.zoom import zoom_image_batch
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.refine.refiner import build_network_inputs, gather_class
+    from deepim_tpu_torch.train import (
+        compute_losses, init_state, make_lr_schedule, make_model, make_synthetic_train_step)
+    from deepim_tpu_torch.train.train import apply_gradients
+
+    cfg = config_from_dict(hl.TRAIN_CONFIG)
+    t, d, n = cfg.train, cfg.dataset, cfg.network
+    assets, _, _ = load_assets_and_names(cfg, device=dev)
+    model = make_model(cfg, assets.num_classes,
+                       generator=torch.Generator().manual_seed(hl.SEED)).to(dev)
+    state = init_state(cfg, model)
+    k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
+    g = torch.Generator(device=dev).manual_seed(hl.SEED)
+    faces = assets.tri_pos.shape[2]
+    expect_sorted = 1 + t.train_iter  # the observed frame, then one crop an iteration
+    for size in (hl.SIZE, hl.COARSE):
+        cfg_s = dataclasses.replace(cfg, network=dataclasses.replace(
+            n, input_height=size[0], input_width=size[1]))
+        step = make_synthetic_train_step(model, assets, cfg_s, k_cam)
+        step(state, g), step(state, g)  # warm (cuDNN algorithm choice, allocator)
+        torch.cuda.synchronize()
+        rc.reset_launches()
+        step(state, g)
+        torch.cuda.synchronize()
+        launches = dict(rc.LAUNCHES)
+        counts[f"train_{size[0]}x{size[1]}"] = launches
+        if launches["raster_sorted"] != expect_sorted or launches["raster_cols"]:
+            raise AssertionError(f"a training render missed the sorted kernel: {launches}")
+        _, peak = peak_memory(lambda: step(state, g))
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            _, metrics = step(state, g)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+        metrics = {k: float(v) for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"training metrics are not finite: {metrics}")
+        fwd, fwd_bwd = network_flops(model, *size)
+        step_flops = fwd_bwd * t.batch_size * t.train_iter
+        log("train", config="synthetic_all", size=f"{size[0]}x{size[1]}", batch=t.batch_size,
+            train_iter=t.train_iter, dtype="bf16", faces=faces,
+            steps_per_s=1.0 / step_s, samples_per_s=t.batch_size / step_s,
+            step_ms=step_s * 1e3, peak_mib=peak, sorted_launches=launches["raster_sorted"],
+            cols_launches=launches["raster_cols"], expected_sorted=expect_sorted,
+            fwd_gflop_per_sample_iter=fwd / 1e9, step_tflop=step_flops / 1e12,
+            mfu_bf16_dense=step_flops / step_s / BF16_FLOPS_PER_S,
+            loss=metrics["loss"], grad_norm=metrics["grad_norm"], card=repr(card))
+
+    # The parts of one full-size step, each timed alone with CUDA events.
+    image = (d.image_height, d.image_width)
+    out_size = hl.SIZE
+    parts = {"synthesis": lambda: synthetic_batch(g, assets, t.batch_size, k_cam, image)}
+    batch = parts["synthesis"]()
+    ab = gather_class(assets, batch["class_idx"])
+
+    def inputs():
+        return build_network_inputs(model, ab, batch["obs_rgb"], batch["pose_src"],
+                                    batch["k"], out_size, obs_mask=batch["obs_mask"],
+                                    obs_depth=batch["obs_depth"])
+
+    ni = inputs()
+
+    def flow_gt():
+        with torch.no_grad():
+            crop = zoom_image_batch(batch["obs_depth"][..., None], ni.box, out_size,
+                                    "nearest")[..., 0]
+            return calc_flow(ni.ren_depth, batch["pose_src"], batch["pose_tgt"], ni.k_zoom,
+                             crop, occlusion_stride=t.flow_occ_stride)
+
+    def fwd_bwd():
+        state.optimizer.zero_grad(set_to_none=False)
+        compute_losses(model, assets, batch, cfg)[0].backward()
+
+    sched = make_lr_schedule(cfg)
+    parts.update(network_inputs=inputs, flow_gt=flow_gt, losses_fwd_bwd=fwd_bwd,
+                 optimizer=lambda: apply_gradients(state, cfg, sched))
+    ms = {}
+    for name, fn in parts.items():
+        fn()
+        ms[name] = ms_per_call(fn, 5)
+    log("train_parts", size=f"{out_size[0]}x{out_size[1]}", batch=t.batch_size, per="call",
+        synthesis_ms=ms["synthesis"], network_inputs_ms_per_iter=ms["network_inputs"],
+        flow_gt_ms_per_iter=ms["flow_gt"], losses_fwd_bwd_ms=ms["losses_fwd_bwd"],
+        optimizer_ms=ms["optimizer"],
+        note="losses_fwd_bwd holds train_iter x (network_inputs + flow_gt) besides "
+             "the network")
+
+    phase_micro_overfit(dev, card)
+    phase_train_cli(dev, card)
+    phase_train_parity(dev, card, assets)
+
+
+def phase_micro_overfit(dev, card):
+    """tests/test_train.py §test_micro_overfit on the card: a fixed batch,
+    Adam at lr 3e-4, OVERFIT_STEPS steps, flow and mask heads off, its
+    tiny config (64x128, B=4, fc_dim 64, float32, box and sphere)."""
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.data import synthetic_batch
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.raster.mesh import box_mesh, icosphere_mesh
+    from deepim_tpu_torch.refine import build_assets
+    from deepim_tpu_torch.train import init_state, make_model, make_train_step
+
+    h, w = 64, 128
+    cfg = config_from_dict({
+        "network": {"input_height": h, "input_width": w, "dtype": "float32", "fc_dim": 64,
+                    "with_flow": False, "with_mask": False},
+        "dataset": {"image_height": h, "image_width": w, "objects": ["box", "icosphere"]},
+        "train": {"batch_size": 4, "warmup_steps": 0, "lr": 3e-4, "optimizer": "adam",
+                  "weight_decay": 0.0, "w_flow": 0.0, "w_mask": 0.0}})
+    assets = build_assets([box_mesh((0.08, 0.1, 0.06)), icosphere_mesh(0.05)],
+                          num_points=64, device=dev)
+    model = make_model(cfg, 2, generator=torch.Generator().manual_seed(0)).to(dev)
+    state = init_state(cfg, model)
+    step = make_train_step(model, assets, cfg)
+    k = make_intrinsics(120.0, 120.0, 64.0, 32.0, device=dev)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(5), assets, 4, k, (h, w))
+    losses, rot = [], []
+    for _ in range(OVERFIT_STEPS):
+        _, m = step(state, batch)
+        losses.append(m["loss"])
+        rot.append(m["rot_err_deg_0"])
+    losses, rot = torch.stack(losses).tolist(), torch.stack(rot).tolist()
+    ok = min(losses) < 0.5 * losses[0] and min(rot) < 0.7 * rot[0]
+    log("micro_overfit", steps=OVERFIT_STEPS, loss_first=losses[0], loss_min=min(losses),
+        loss_last=losses[-1], rot_err_deg_first=rot[0], rot_err_deg_min=min(rot),
+        need="min(loss) < 0.5 x first, min(rot_err_deg_0) < 0.7 x first", ok=ok)
+    if not ok:
+        raise AssertionError("the micro-overfit's loss did not fall")
+
+
+def phase_train_cli(dev, card):
+    """SMALL_STEPS fresh-batch steps of experiments/cfgs/synthetic_small.yaml
+    (192x256, B=32) through ``python -m deepim_tpu_torch.cli.train`` 's
+    main into a temporary output_dir, logging every step; then
+    ``--resume`` to SMALL_RESUME steps from the checkpoint it wrote."""
+    import io
+    import tempfile
+
+    import yaml
+
+    from deepim_tpu_torch.cli import train as cli
+    from deepim_tpu_torch.train import checkpoint_dir, latest_step
+    from deepim_tpu_torch.config import config_from_dict
+
+    with open(ROOT / "experiments/cfgs/synthetic_small.yaml") as f:
+        spec = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        spec["output_dir"] = tmp
+        spec["train"]["log_every"] = 1
+        path = Path(tmp) / "synthetic_small.yaml"
+        path.write_text(yaml.safe_dump(spec))
+        args = ["--cfg", str(path), "--device", str(dev)]
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            cli.main(args + ["--num-steps", str(SMALL_STEPS)])
+        run_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(out):
+            cli.main(args + ["--num-steps", str(SMALL_RESUME), "--resume"])
+        log_path = Path(tmp) / spec["experiment"] / "train_log.jsonl"
+        recs = [json.loads(line) for line in log_path.read_text().splitlines()]
+        ckpt = checkpoint_dir(config_from_dict(spec))
+        resumed = f"resumed from step {SMALL_STEPS}" in out.getvalue()
+        steps = [r["step"] for r in recs]
+        first = statistics.mean(r["loss"] for r in recs[:50])
+        last = statistics.mean(r["loss"] for r in recs[SMALL_STEPS - 50:SMALL_STEPS])
+        log("train_cli", config="synthetic_small", batch=spec["train"]["batch_size"],
+            size=f"{spec['network']['input_height']}x{spec['network']['input_width']}",
+            steps=SMALL_STEPS, seconds=run_s, mean_loss_first50=first, mean_loss_last50=last,
+            resumed=resumed, resumed_to=steps[-1], latest_checkpoint=latest_step(ckpt),
+            last_line=out.getvalue().strip().splitlines()[-2])
+        if steps != list(range(1, SMALL_RESUME + 1)) or not resumed:
+            raise AssertionError(f"--resume did not continue the run: {steps[-5:]}")
+        if latest_step(ckpt) != SMALL_RESUME or not last < first:
+            raise AssertionError("synthetic_small: no checkpoint, or the loss did not fall")
+
+
+@contextlib.contextmanager
+def recording_step_inputs(record: list, shared: list | None = None):
+    """Append to ``record``, per iteration of ``compute_losses``, what it
+    computes under no_grad: the pose it refines from, the zoom box and
+    k_zoom (``compute_zoom_box``, ``zoom_intrinsics``) with the network
+    input and renders (``build_network_inputs``), the observation's
+    nearest depth and mask crops (``zoom_image_batch``), the flow GT
+    (``calc_flow``) and the updated pose (``apply_delta``).  Given
+    ``shared`` (another run's record), the zoom box, k_zoom and updated
+    pose of each iteration are that run's: the crops are rendered and
+    sampled from the same float32 values."""
+    from deepim_tpu_torch.refine import refiner
+    from deepim_tpu_torch.train import train as tr
+
+    home = {"build_network_inputs": tr, "zoom_image_batch": tr, "calc_flow": tr,
+            "apply_delta": tr, "compute_zoom_box": refiner, "zoom_intrinsics": refiner}
+    real = {n: getattr(mod, n) for n, mod in home.items()}
+    pending = {}
+
+    def like(value, out):
+        if isinstance(out, tuple):
+            return type(out)(*(like(v, o) for v, o in zip(value, out)))
+        return value.to(device=out.device, dtype=out.dtype)
+
+    def wrap(name):
+        def call(*args, **kwargs):
+            out = real[name](*args, **kwargs)
+            if name in ("compute_zoom_box", "zoom_intrinsics"):
+                if shared is not None:
+                    out = like(shared[len(record)][name], out)
+                pending[name] = out
+            elif name == "build_network_inputs":
+                record.append({"pose": args[3], "ni": out, "crops": [], **pending})
+                pending.clear()
+            elif name == "zoom_image_batch":
+                record[-1]["crops"].append(out)
+            elif name == "calc_flow":
+                record[-1]["flow"] = out
+            else:
+                if shared is not None:
+                    out = like(shared[len(record) - 1]["pose_new"], out)
+                record[-1]["pose_new"] = out.detach()
+            return out
+        return call
+
+    for name, mod in home.items():
+        setattr(mod, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name, mod in home.items():
+            setattr(mod, name, real[name])
+
+
+def step_input_diffs(card_rec: list, cpu_rec: list) -> list[dict]:
+    """Card against CPU, per iteration: how far the pose, the zoom box
+    (origin in pixels, scale relative) and k_zoom moved, and how many pixels of the network input
+    (any channel off by more than 1e-6), the rendered depth, the two
+    nearest crops and the flow GT's valid mask differ."""
+    def cpu64(x):
+        return x.detach().cpu().double()
+
+    rows = []
+    for it, (a, b) in enumerate(zip(card_rec, cpu_rec)):
+        (flow_a, valid_a), (flow_b, valid_b) = a["flow"], b["flow"]
+        both = valid_a.cpu() & valid_b.cpu()
+        x_off = (cpu64(a["ni"].x) - cpu64(b["ni"].x)).abs().amax(dim=-1)
+        rows.append(dict(
+            iteration=it,
+            pose_max_diff=float((cpu64(a["pose"]) - cpu64(b["pose"])).abs().max()),
+            box_origin_max_diff_px=max(float((cpu64(getattr(a["ni"].box, f))
+                                              - cpu64(getattr(b["ni"].box, f))).abs().max())
+                                       for f in ("x0", "y0")),
+            box_scale_max_rel_diff=max(float(((cpu64(getattr(a["ni"].box, f))
+                                               - cpu64(getattr(b["ni"].box, f)))
+                                              / cpu64(getattr(b["ni"].box, f))).abs().max())
+                                       for f in ("sx", "sy")),
+            k_zoom_max_diff=float((cpu64(a["ni"].k_zoom) - cpu64(b["ni"].k_zoom)).abs().max()),
+            pixels=x_off.numel(), x_max_abs_diff=float(x_off.max()),
+            x_pixels_off=int((x_off > 1e-6).sum()),
+            ren_depth_pixels_off=int(((cpu64(a["ni"].ren_depth)
+                                       - cpu64(b["ni"].ren_depth)).abs() > 1e-6).sum()),
+            obs_depth_crop_pixels_off=int((a["crops"][0].cpu() != b["crops"][0].cpu()).sum()),
+            obs_mask_crop_pixels_off=int((a["crops"][1].cpu() != b["crops"][1].cpu()).sum()),
+            flow_valid_pixels_off=int((valid_a.cpu() != valid_b.cpu()).sum()),
+            flow_max_diff_where_both_valid=float(
+                ((cpu64(flow_a) - cpu64(flow_b)).abs() * both[..., None]).max())))
+    return rows
+
+
+def grad_err(got: dict, want: dict) -> tuple[float, str]:
+    """(max over leaves of the largest gradient difference over that
+    leaf's max abs, the leaf where it is)."""
+    return max((float((got[n].double() - v.double()).abs().max())
+                / max(float(v.abs().max()), 1e-30), n) for n, v in want.items())
+
+
+def phase_train_parity(dev, card, assets):
+    """One train step on the card (kernels, cuDNN) against the CPU (plain
+    versions) at B=TRAIN_PARITY_B, 480x640, the flagship config without
+    warmup (the update runs at lr 3e-4): the same bridged initial weights
+    (pose heads given noise so every layer learns), the same batch made on
+    the CPU, TF32 off.
+
+    - float32 at the flagship's train_iter 2: the losses and monitors
+      agree within rtol 1e-4.  Its card-against-CPU gradients and updated
+      params are printed, not held: float32 backward algorithms miss the
+      float64 gradient by up to 2.8 % (cuDNN) and 12 % (oneDNN) of a
+      layer's largest entry here, and Adam's first update, ~lr * sign(g),
+      turns a sign that differs into 2 lr.
+    - The card's float32 gradient against the card's float64 gradient at
+      train_iter 1 (the same input): within F32_GRAD_FRAC of each leaf's
+      max abs.
+    - float64 at train_iter 1: the metrics, the gradient norm and each
+      gradient within 1e-3 of its leaf's max abs.
+    - float64 at train_iter 2: the no-grad inputs of each iteration card
+      against CPU (pose, zoom box, k_zoom, and the pixels that differ in
+      the network input, rendered depth, nearest crops and flow-GT valid
+      mask) printed; the metrics within rtol 1e-4 and each gradient
+      within ITER2_GRAD_FRAC of its leaf's max abs.  Run again with the
+      CPU's zoom box, k_zoom and updated pose of each iteration handed to
+      the card (its crops then render from the same float32 values): the
+      metrics, the gradient norm and each gradient within 1e-3.
+    - Adam on the card from the CPU's float32 gradients gives the CPU's
+      params within 1e-6."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.data import synthetic_batch
+    from deepim_tpu_torch.models.bridge import flax_to_torch, torch_to_flax
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.train import compute_losses, init_state, make_lr_schedule, make_model
+    from deepim_tpu_torch.train.train import apply_gradients
+
+    spec = copy.deepcopy(hl.TRAIN_CONFIG)
+    spec.setdefault("network", {})["dtype"] = "float32"
+    spec["train"].update(batch_size=TRAIN_PARITY_B, warmup_steps=0)
+    cfg = config_from_dict(spec)
+    d, size = cfg.dataset, f"{cfg.network.input_height}x{cfg.network.input_width}"
+    g = torch.Generator().manual_seed(hl.SEED)
+    sd = make_model(cfg, assets.num_classes, generator=g).state_dict()
+    for head in ("fc_rot", "fc_trans"):
+        for kind in ("weight", "bias"):
+            sd[f"{head}.{kind}"] = sd[f"{head}.{kind}"] + hl.HEAD_SCALE * torch.randn(
+                sd[f"{head}.{kind}"].shape, generator=g)
+    sd = flax_to_torch(torch_to_flax(sd))
+    assets_cpu = assets.to("cpu")
+    k = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device="cpu")
+    batch = synthetic_batch(g, assets_cpu, TRAIN_PARITY_B, k, (d.image_height, d.image_width))
+
+    def fresh(device, dtype):
+        m = make_model(cfg, assets.num_classes)
+        m.load_state_dict(sd)
+        m = m.to(device=device, dtype=dtype)
+        m.dtype = dtype
+        return m, init_state(cfg, m)
+
+    def one_step(device, dtype, train_iter, record=None, shared=None):
+        cfg_s = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                   train_iter=train_iter))
+        m, state = fresh(device, dtype)
+        a = assets if device == dev else assets_cpu
+        t0 = time.perf_counter()
+        with (recording_step_inputs(record, shared) if record is not None
+              else contextlib.nullcontext()):
+            loss, metrics = compute_losses(m, a, {k: v.to(device) for k, v in batch.items()},
+                                           cfg_s)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()}
+        metrics["grad_norm"] = apply_gradients(state, cfg_s, make_lr_schedule(cfg_s))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        params = {n: p.detach().cpu() for n, p in m.named_parameters()}
+        return metrics, grads, params, time.perf_counter() - t0
+
+    held, card_grads, cpu_f32 = {}, {}, None
+    for dtype, train_iter, shared in ((torch.float32, 2, False), (torch.float64, 1, False),
+                                      (torch.float64, 2, False), (torch.float64, 2, True)):
+        name = "float32" if dtype == torch.float32 else "float64"
+        rec_card, rec_cpu = [], []
+        m_cpu, g_cpu, p_cpu, t_cpu = one_step("cpu", dtype, train_iter, rec_cpu)
+        m_card, g_card, p_card, t_card = one_step(dev, dtype, train_iter, rec_card,
+                                                  rec_cpu if shared else None)
+        if not shared:
+            card_grads[name, train_iter] = g_card
+        cpu_f32 = cpu_f32 or (g_cpu, p_cpu)
+        rel = {k: abs(m_card[k] - v) / max(abs(v), 1e-12) for k, v in m_cpu.items()}
+        forward_err = max(v for k, v in rel.items() if k != "grad_norm")
+        g_err, g_leaf = grad_err(g_card, g_cpu)
+        diffs = [(p_card[n] - v).abs() for n, v in p_cpu.items()]
+        param_err = max(float(x.max()) for x in diffs)
+        tag = f"{name}_iter{train_iter}" + ("_shared_zoom" if shared else "")
+        grad_frac = (ITER2_GRAD_FRAC if (name, train_iter, shared) == ("float64", 2, False)
+                     else GRAD_FRAC)
+        held[f"{tag}_metrics_rtol_1e-4"] = forward_err <= TRAIN_RTOL
+        held[f"{tag}_grad_norm_rtol_1e-4"] = rel["grad_norm"] <= TRAIN_RTOL
+        held[f"{tag}_grads_{grad_frac:g}_of_leaf_max"] = g_err <= grad_frac
+        held[f"{tag}_params_after_adam_1e-6"] = param_err <= PARAM_ATOL
+        log("train_parity", dtype=name, train_iter=train_iter, batch=TRAIN_PARITY_B,
+            card_takes_cpu_zoom_and_poses=shared, size=size, tf32=False,
+            loss_card=m_card["loss"], loss_cpu=m_cpu["loss"],
+            max_loss_metric_rel_err=forward_err, grad_norm_rel_err=rel["grad_norm"],
+            max_grad_err_over_leaf_max=g_err, at_leaf=g_leaf,
+            max_param_err_after_adam=param_err,
+            params_off_by_more_than_1e6th=sum(int((x > PARAM_ATOL).sum()) for x in diffs),
+            params=sum(x.numel() for x in diffs), card_s=t_card, cpu_s=t_cpu)
+        for row in step_input_diffs(rec_card, rec_cpu):
+            log("train_parity_inputs", dtype=name, train_iter=train_iter,
+                card_takes_cpu_zoom_and_poses=shared, **row)
+        del g_cpu, p_card, p_cpu, diffs
+    # The card's float32 backward against its own float64 one.
+    card_grads["float32", 1] = one_step(dev, torch.float32, 1)[1]
+    f32_err = {it: grad_err(card_grads["float32", it], card_grads["float64", it])
+               for it in (1, 2)}
+    held[f"card_float32_vs_float64_iter1_grads_{F32_GRAD_FRAC:g}_of_leaf_max"] = (
+        f32_err[1][0] <= F32_GRAD_FRAC)
+    log("train_parity", case="card_float32_vs_card_float64",
+        iter1_max_grad_err_over_leaf_max=f32_err[1][0], iter1_at_leaf=f32_err[1][1],
+        iter2_max_grad_err_over_leaf_max=f32_err[2][0], iter2_at_leaf=f32_err[2][1])
+    del card_grads
+    # The optimizer alone: the card's Adam on the CPU's float32 gradients.
+    g_cpu, p_cpu = cpu_f32
+    m, state = fresh(dev, torch.float32)
+    for n, p in m.named_parameters():
+        p.grad.copy_(g_cpu[n])
+    apply_gradients(state, cfg, make_lr_schedule(cfg))
+    adam_err = max(float((p.detach().cpu() - p_cpu[n]).abs().max())
+                   for n, p in m.named_parameters())
+    moved = max(float((p_cpu[n] - sd[n]).abs().max()) for n in p_cpu)
+    held["adam_on_shared_grads_1e-6"] = adam_err <= PARAM_ATOL
+    gated = ("float32_iter2_metrics_rtol_1e-4",
+             f"card_float32_vs_float64_iter1_grads_{F32_GRAD_FRAC:g}_of_leaf_max",
+             "float64_iter1_metrics_rtol_1e-4", "float64_iter1_grad_norm_rtol_1e-4",
+             f"float64_iter1_grads_{GRAD_FRAC:g}_of_leaf_max",
+             "float64_iter2_metrics_rtol_1e-4",
+             f"float64_iter2_grads_{ITER2_GRAD_FRAC:g}_of_leaf_max",
+             "float64_iter2_shared_zoom_metrics_rtol_1e-4",
+             "float64_iter2_shared_zoom_grad_norm_rtol_1e-4",
+             f"float64_iter2_shared_zoom_grads_{GRAD_FRAC:g}_of_leaf_max",
+             "adam_on_shared_grads_1e-6")
+    log("train_parity", case="adam_on_shared_grads", max_param_err=adam_err, moved=moved,
+        held=held, gated=list(gated))
+    if not all(held[k] for k in gated) or not moved > 1e-5:
+        raise AssertionError(f"a train step on the card disagrees with the CPU path: {held}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1060,7 +1572,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-11 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-12 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -1135,6 +1647,9 @@ def run_phases(dev, card: str) -> list[dict]:
     # This slice: the service, multi-hypothesis selection and tracking.
     phase_service(dev, card, rc, counts)
     phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts)
+
+    # This slice: training at the flagship config.
+    phase_training(dev, card, rc, counts)
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -18,6 +18,9 @@ the deferred-texture pass; multi-hypothesis selection
 :class:`deepim_tpu_torch.serve.PoseRefinerService` with the config
 (:func:`deepim_tpu_torch.config.config_from_dict`), the asset loader, the
 model builder and torch checkpoints that carry weights trained by the
-JAX package.  All three rasterizer kernels are hand-written CUDA
-(``raster/csrc``), built at first use on the card.
+JAX package; and training: the flow decoder and mask head, the losses
+(:mod:`deepim_tpu_torch.losses`), flow ground truth, the optimizer and the
+fused synthesize-and-train step (:mod:`deepim_tpu_torch.train`) driven by
+``python -m deepim_tpu_torch.cli.train``.  All three rasterizer kernels
+are hand-written CUDA (``raster/csrc``), built at first use on the card.
 """

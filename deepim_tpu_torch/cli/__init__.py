@@ -1,6 +1,6 @@
-"""Entry-point helpers of the port (``deepim_tpu/cli``).
+"""Entry points of the port (``deepim_tpu/cli``).
 
-Only ``train.load_assets_and_names`` is ported so far: the serving path
-builds its render assets with it.  The train, test and track drivers are
-ROADMAP A12-A13.
+``train``: the training driver (``python -m deepim_tpu_torch.cli.train``)
+and ``load_assets_and_names``, with which the service builds its assets.
+The test and track drivers are ROADMAP A13.
 """

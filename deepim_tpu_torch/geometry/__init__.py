@@ -22,7 +22,13 @@ from deepim_tpu_torch.geometry.pose_errors import (
     rot_error_deg,
     trans_error,
 )
-from deepim_tpu_torch.geometry.se3 import project_points, se3_from_rt, transform_points
+from deepim_tpu_torch.geometry.se3 import (
+    project_points,
+    se3_from_rt,
+    se3_inverse,
+    se3_mul,
+    transform_points,
+)
 from deepim_tpu_torch.geometry.symmetry import (
     LINEMOD_SYMMETRIC,
     YCB_SYMMETRIC,

@@ -1,7 +1,7 @@
 """Rigid-transform (SE(3)) helpers on 3x4 pose matrices.
 
 Port of ``deepim_tpu/geometry/se3.py`` (``_mm``, ``se3_from_rt``,
-``transform_points``, ``project_points``).  The reference runs these tiny
+``se3_mul``, ``se3_inverse``, ``transform_points``, ``project_points``).  The reference runs these tiny
 products at ``Precision.HIGHEST``; here they are broadcast-multiply + sum,
 so they stay true float32 whatever the TF32 settings of the process are.
 """
@@ -24,6 +24,21 @@ def _mv(r: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def se3_from_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack (R (...,3,3), t (...,3)) into a (..., 3, 4) pose matrix."""
     return torch.cat([r, t[..., None]], dim=-1)
+
+
+def se3_mul(rt1: torch.Tensor, rt2: torch.Tensor) -> torch.Tensor:
+    """Compose pose matrices: the result maps X through ``rt2`` then ``rt1``.
+
+    (..., 3, 4) x (..., 3, 4) -> (..., 3, 4): ``R = R1 R2``, ``t = R1 t2 + t1``.
+    """
+    r1, t1 = rt1[..., :3], rt1[..., 3]
+    return se3_from_rt(_mm(r1, rt2[..., :3]), _mv(r1, rt2[..., 3]) + t1)
+
+
+def se3_inverse(rt: torch.Tensor) -> torch.Tensor:
+    """Inverse pose: (..., 3, 4) -> (..., 3, 4)."""
+    r_inv = rt[..., :3].transpose(-1, -2)
+    return se3_from_rt(r_inv, -_mv(r_inv, rt[..., 3]))
 
 
 def transform_points(points: torch.Tensor, r: torch.Tensor,

@@ -12,8 +12,11 @@ protocol of the port only.  ``chip_smoke.py`` and
 :mod:`deepim_tpu_torch.profile_headline` drive the port through it.
 
 ``SERVE_CONFIG`` is the serving protocol: the flagship experiment
-``experiments/cfgs/synthetic_all_c2f.yaml`` as a dict (the card's machine
-has no PyYAML), its device batch raised to the bench's B.
+``experiments/cfgs/synthetic_all_c2f.yaml`` as a dict, its device batch
+raised to the bench's B.  ``TRAIN_CONFIG`` is the training protocol: the
+flagship training experiment ``experiments/cfgs/synthetic_all.yaml`` as a
+dict (B=32, 480x640, ``train_iter`` 2, flow and mask heads, bf16, Adam).
+Both are held to their YAMLs by ``tests/test_torch_headline.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,18 @@ SERVE_CONFIG = {
               "train_iter": 2, "w_flow": 0.05, "w_mask": 0.05, "coarse_fraction": 0.5,
               "sym_aware_pm": False, "log_every": 100, "checkpoint_every": 2000},
     "test": {"test_iter": 4, "coarse_iters": 2, "batch_size": B},
+}
+
+
+# experiments/cfgs/synthetic_all.yaml.
+TRAIN_CONFIG = {
+    "experiment": "synthetic_all",
+    "dataset": {"name": "synthetic", "objects": ["box", "icosphere", "cylinder", "torus"]},
+    "train": {"batch_size": 32, "num_steps": 30000, "optimizer": "adam", "lr": 3.0e-4,
+              "weight_decay": 0.0, "warmup_steps": 200, "lr_decay_steps": [22000, 27000],
+              "train_iter": 2, "w_flow": 0.05, "w_mask": 0.05, "log_every": 100,
+              "checkpoint_every": 5000},
+    "test": {"test_iter": 4, "batch_size": 32},
 }
 
 

@@ -1,21 +1,30 @@
-"""FlowNetS-backbone DeepIM network, pose-only forward (torch).
+"""FlowNetS-backbone DeepIM network with its flow and mask heads (torch).
 
-Port of ``deepim_tpu/models/flownet.py``: ``DeepIMFlowNet`` as the refine
-loop runs it (``pose_only=True``): the encoder conv1 .. conv6_1, the
-flatten pose head with the ``head_grid`` resize, fc1/fc2, the float32
-fc_rot/fc_trans heads and ``trans_scale``; plus ``bottleneck_grid``,
-``select_class``, ``decode_rot``, ``network_input`` and
-``normalize_depth``.  The flow decoder, the mask head, the space-to-depth
-stem, the fast deconvolution and int8 are not ported yet.
+Port of ``deepim_tpu/models/flownet.py``: ``DeepIMFlowNet`` with the
+encoder conv1 .. conv6_1, the FlowNetS decoder (``predict_flow6..2``,
+``deconv5..2``, ``upsample_flow{l+1}to{l}``, ``_crop_to``) and the mask
+head (``mask_conv``, ``mask_pred``) that training supervises, the flatten
+pose head with the ``head_grid`` resize or the ``gap`` head, fc1/fc2, the
+float32 fc_rot/fc_trans heads and ``trans_scale``; plus
+``bottleneck_grid``, ``select_class``, ``decode_rot``, ``network_input``
+and ``normalize_depth``.  The space-to-depth stem and the fast
+deconvolution (TPU layouts of the same parameters, off by default in the
+reference) and int8 are not ported.
 
 Numbers follow the reference's flax modules:
 
 - Padding is XLA's SAME, which splits odd padding with the extra pixel at
   the end and depends on the live input size (:func:`same_pad`);
   ``Conv2d(padding=k//2)`` would shift stride-2 taps by one pixel.
-- ``dtype`` is the compute type of the convs and fc1/fc2 (params stay
-  float32 and are cast per call, like flax ``dtype=bf16,
-  param_dtype=f32``); fc_rot/fc_trans always run in float32.
+- The decoder's 4x4/s2 transposed convs: flax's ``ConvTranspose`` with
+  SAME pads the stride-dilated input by (2, 2) and correlates with its
+  kernel unflipped; torch's ``conv_transpose2d`` is a conv's gradient,
+  so it flips the kernel, and ``padding=1`` gives the same (2, 2) and an
+  output of exactly 2n.  The bridge flips the kernels.
+- ``dtype`` is the compute type of the convs, the decoder and fc1/fc2
+  (params stay float32 and are cast per call, like flax ``dtype=bf16,
+  param_dtype=f32``); fc_rot/fc_trans always run in float32, and the flow
+  and mask outputs are returned in float32.
 - The flatten is NHWC-ordered, so fc1 weights carry over unpermuted.
 - Initial weights follow flax's defaults (truncated lecun-normal kernels,
   zero biases, identity pose heads), drawn from an explicit generator.
@@ -43,6 +52,12 @@ ENCODER = (
     ("conv5", 512, 3, 2), ("conv5_1", 512, 3, 1), ("conv6", 1024, 3, 2),
     ("conv6_1", 1024, 3, 1),
 )
+# Encoder output feeding each decoder level (the skip), and the decoder's
+# (level, deconv channels) from the bottleneck up.  Level l predicts flow
+# at 1/2^l of the input.
+SKIPS = {5: "conv5_1", 4: "conv4_1", 3: "conv3_1", 2: "conv2"}
+DECODER = ((5, 512), (4, 256), (3, 128), (2, 64))
+FLOW_LEVELS = (6, 5, 4, 3, 2)
 
 
 def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
@@ -60,17 +75,33 @@ def bottleneck_grid(input_height: int, input_width: int) -> tuple[int, int]:
     return (-(-input_height // 64), -(-input_width // 64))
 
 
+def _fan_in(module: nn.Module, p: torch.Tensor) -> int:
+    """flax's fan-in of a kernel: a transposed conv's weight is (in, out,
+    kh, kw) in torch, every other weight has its fan-in in ``p[0]``."""
+    if isinstance(module, nn.ConvTranspose2d):
+        return p.shape[0] * p.shape[2] * p.shape[3]
+    return p[0].numel()
+
+
 class DeepIMFlowNet(nn.Module):
-    """Pose-only DeepIM network.
+    """The DeepIM network.
 
-    ``forward(x)`` takes the (B, H, W, C) NHWC input of
+    ``forward(x, pose_only=False)`` takes the (B, H, W, C) NHWC input of
     :func:`network_input` (the reference's layout) and returns
-    ``{"rot_raw": (B, num_classes, rot_dim), "trans": (B, num_classes, 3)}``.
+    ``{"rot_raw": (B, num_classes, rot_dim), "trans": (B, num_classes, 3)}``,
+    plus, unless ``pose_only``, ``"flow"`` {level: (B, H/2^l, W/2^l, 2)}
+    when ``with_flow`` and ``"mask_logit"`` (B, H/4, W/4, 1) when
+    ``with_mask``, both float32.  The decoder exists (and has parameters)
+    when either head is on; the refine loop and the service run the
+    pose-only forward, so their models are built without it.
 
-    fc1's width is fixed at construction: ``head_grid`` (bottleneck grid
-    every input is resized to, required for coarse-to-fine) or, without
-    it, the bottleneck of ``input_size``.  Initial weights are drawn from
-    ``generator`` (a fresh generator seeded 0 when None).
+    ``pose_head="flatten"`` (the reference's) fixes fc1's width at
+    construction: ``head_grid`` (bottleneck grid every input is resized
+    to, required for coarse-to-fine) or, without it, the bottleneck of
+    ``input_size``; ``"gap"`` averages the bottleneck over space.
+    Initial weights are drawn from ``generator`` (a fresh generator seeded
+    0 when None), the decoder's after the pose head's, so a model with and
+    one without the decoder share every other initial weight.
     """
 
     def __init__(self, num_classes: int = 1, rot_type: str = "quat",
@@ -80,6 +111,8 @@ class DeepIMFlowNet(nn.Module):
                  fc_dim: int = 1024,
                  trans_scale: tuple[float, float, float] = (20.0, 20.0, 0.5),
                  dtype: torch.dtype = torch.bfloat16, quant: str = "none",
+                 with_flow: bool = False, with_mask: bool = False,
+                 pose_head: str = "flatten",
                  generator: torch.Generator | None = None):
         super().__init__()
         if quant != "none":
@@ -88,7 +121,9 @@ class DeepIMFlowNet(nn.Module):
                 "(ROADMAP A10)")
         if rot_type not in ("quat", "euler"):
             raise ValueError(rot_type)
-        if head_grid is None and input_size is None:
+        if pose_head not in ("flatten", "gap"):
+            raise ValueError(pose_head)
+        if pose_head == "flatten" and head_grid is None and input_size is None:
             raise ValueError("give head_grid or input_size: fc1's width "
                              "depends on the bottleneck grid")
         self.num_classes = num_classes
@@ -97,62 +132,122 @@ class DeepIMFlowNet(nn.Module):
         self.head_grid = None if head_grid is None else tuple(head_grid)
         self.input_mask = input_mask
         self.input_depth = input_depth
+        self.with_flow = with_flow
+        self.with_mask = with_mask
+        self.pose_head = pose_head
         self.dtype = dtype
         self.register_buffer("trans_scale",
                              torch.tensor(trans_scale, dtype=torch.float32),
                              persistent=False)
         cin = 6 + 2 * input_mask + 2 * input_depth
         skip_init = torch.nn.utils.skip_init  # weights are drawn below
+        channels = {}
         for name, cout, k, s in ENCODER:
             self.add_module(name, skip_init(nn.Conv2d, cin, cout, k, stride=s))
-            cin = cout
-        gh, gw = self.head_grid or bottleneck_grid(*input_size)
-        self.fc1 = skip_init(nn.Linear, cin * gh * gw, fc_dim)
+            cin = channels[name] = cout
+        if pose_head == "flatten":
+            gh, gw = self.head_grid or bottleneck_grid(*input_size)
+            self.fc1 = skip_init(nn.Linear, cin * gh * gw, fc_dim)
+        else:
+            self.fc1 = skip_init(nn.Linear, cin, fc_dim)
         self.fc2 = skip_init(nn.Linear, fc_dim, fc_dim)
         self.fc_rot = skip_init(nn.Linear, fc_dim, num_classes * self.rot_dim)
         self.fc_trans = skip_init(nn.Linear, fc_dim, num_classes * 3)
+        if with_flow or with_mask:
+            self.predict_flow6 = skip_init(nn.Conv2d, cin, 2, 3)
+            for lvl, cout in DECODER:
+                self.add_module(f"deconv{lvl}", skip_init(
+                    nn.ConvTranspose2d, cin, cout, 4, stride=2, padding=1))
+                self.add_module(f"upsample_flow{lvl + 1}to{lvl}", skip_init(
+                    nn.ConvTranspose2d, 2, 2, 4, stride=2, padding=1))
+                cin = channels[SKIPS[lvl]] + cout + 2
+                self.add_module(f"predict_flow{lvl}", skip_init(nn.Conv2d, cin, 2, 3))
+            if with_mask:
+                self.mask_conv = skip_init(nn.Conv2d, cin, 64, 3)
+                self.mask_pred = skip_init(nn.Conv2d, 64, 1, 3)
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("bias") or name.startswith(("fc_rot", "fc_trans")):
-                    p.zero_()
-                else:
-                    std = (1.0 / p[0].numel()) ** 0.5 / _TRUNC_STD
-                    nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std, generator=g)
+            for mod_name, mod in self.named_children():
+                for p_name, p in mod.named_parameters():
+                    if p_name == "bias" or mod_name in ("fc_rot", "fc_trans"):
+                        p.zero_()
+                    else:
+                        std = (1.0 / _fan_in(mod, p)) ** 0.5 / _TRUNC_STD
+                        nn.init.trunc_normal_(p, std=std, a=-2 * std, b=2 * std,
+                                              generator=g)
             # Identity heads, as the reference initialises them: an
             # untrained net leaves every pose unchanged.
             if rot_type == "quat":
                 self.fc_rot.bias.view(num_classes, 4)[:, 0] = 1.0
 
-    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        conv = getattr(self, name)
+    def _same(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """``conv`` with XLA SAME padding, in the compute type."""
         k, s = conv.kernel_size[0], conv.stride[0]
         (ht, hb), (wl, wr) = (same_pad(x.shape[2], k, s),
                               same_pad(x.shape[3], k, s))
         x = F.pad(x, (wl, wr, ht, hb))
-        y = F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
-        return leaky(y)
+        return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
+
+    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        return leaky(self._same(getattr(self, name), x))
+
+    def _up(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A 4x4/s2 transposed conv with flax's SAME (output 2n)."""
+        conv = getattr(self, name)
+        return F.conv_transpose2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype),
+                                  stride=2, padding=1)
 
     @staticmethod
     def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    def _decode(self, c6: torch.Tensor, skips: dict[str, torch.Tensor]
+                ) -> dict[str, torch.Tensor]:
+        """The FlowNetS refinement stack and the mask head, off the finest
+        decoder features (1/4 scale)."""
+        feat = c6
+        flow = self._same(self.predict_flow6, feat)
+        flows = {6: flow}
+        for lvl, _ in DECODER:
+            skip = skips[SKIPS[lvl]]
+            h, w = skip.shape[2:]
+            # SAME on a transposed conv can overshoot an odd skip by one
+            # pixel (the reference's _crop_to).
+            up_feat = leaky(self._up(f"deconv{lvl}", feat))[..., :h, :w]
+            up_flow = self._up(f"upsample_flow{lvl + 1}to{lvl}", flow)[..., :h, :w]
+            feat = torch.cat([skip, up_feat, up_flow], dim=1)
+            flow = flows[lvl] = self._same(getattr(self, f"predict_flow{lvl}"), feat)
+        out = {}
+        if self.with_flow:
+            out["flow"] = {lvl: f.permute(0, 2, 3, 1).float() for lvl, f in flows.items()}
+        if self.with_mask:
+            m = self._same(self.mask_pred, self._conv("mask_conv", feat))
+            out["mask_logit"] = m.permute(0, 2, 3, 1).float()
+        return out
+
+    def forward(self, x: torch.Tensor, pose_only: bool = False) -> dict[str, torch.Tensor]:
+        decode = (self.with_flow or self.with_mask) and not pose_only
         c = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        skips = {}
         for name, *_ in ENCODER:
             c = self._conv(name, c)
-        if self.head_grid is not None and tuple(c.shape[2:]) != self.head_grid:
-            c = F.interpolate(c, size=self.head_grid, mode="bilinear",
-                              align_corners=False, antialias=False)
-        h = c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)  # NHWC flatten
+            if decode and name in SKIPS.values():
+                skips[name] = c
+        out = self._decode(c, skips) if decode else {}
+        if self.pose_head == "gap":
+            h = c.mean(dim=(2, 3))
+        else:
+            if self.head_grid is not None and tuple(c.shape[2:]) != self.head_grid:
+                c = F.interpolate(c, size=self.head_grid, mode="bilinear",
+                                  align_corners=False, antialias=False)
+            h = c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)  # NHWC flatten
         h = leaky(self._linear(self.fc1, h))
         h = leaky(self._linear(self.fc2, h)).float()
         rot = self._linear(self.fc_rot, h)
         trans = self._linear(self.fc_trans, h)
-        return {
-            "rot_raw": rot.reshape(-1, self.num_classes, self.rot_dim),
-            "trans": trans.reshape(-1, self.num_classes, 3) * self.trans_scale,
-        }
+        out["rot_raw"] = rot.reshape(-1, self.num_classes, self.rot_dim)
+        out["trans"] = trans.reshape(-1, self.num_classes, 3) * self.trans_scale
+        return out
 
 
 def select_class(per_class: torch.Tensor, class_idx: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Axis-aligned affine crop+resize as two separable matmuls (torch).
 
-Port of ``deepim_tpu/ops/resample.py`` (``_bilinear_matrix``,
-``_nearest_matrix``, ``resample_affine``).  The reference chose the
+Port of ``deepim_tpu/ops/resample.py`` (``nearest_sample``,
+``_bilinear_matrix``, ``_nearest_matrix``, ``resample_affine``).  The reference chose the
 separable-matmul form because gathers are slow on its hardware; the port
 keeps it so the two agree by construction (a gather-based form is later
 performance work).  Pixel centres sit at integer + 0.5 and out-of-bounds
@@ -13,6 +13,31 @@ default).
 from __future__ import annotations
 
 import torch
+
+
+def nearest_sample(img: torch.Tensor, coords: torch.Tensor,
+                   fill_value: float = 0.0) -> torch.Tensor:
+    """Nearest-neighbour lookup of ``img`` (*batch, H, W, C) at ``coords``
+    (*batch, *points, 2) as (x, y) with pixel centres at integer + 0.5
+    -> (*batch, *points, C); ``fill_value`` outside the image.
+
+    The index rounds half to even (``torch.round``, like ``jnp.round``) and
+    the in-bounds test is made on the rounded index, as the reference's.
+    The reference samples one image; the leading batch dims here replace
+    its ``vmap``.
+    """
+    h, w, c = img.shape[-3:]
+    batch = img.shape[:-3]
+    xi = torch.round(coords[..., 0] - 0.5)
+    yi = torch.round(coords[..., 1] - 0.5)
+    inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+    idx = (yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long())
+    flat_img = img.reshape(-1, h * w, c)
+    flat_idx = idx.reshape(flat_img.shape[0], -1)
+    v = torch.gather(flat_img, 1, flat_idx[..., None].expand(-1, -1, c))
+    v = v.reshape(*batch, *coords.shape[len(batch):-1], c)
+    return torch.where(inb[..., None], v, torch.as_tensor(fill_value, dtype=img.dtype,
+                                                           device=img.device))
 
 
 def _bilinear_matrix(src: torch.Tensor, size_in: int) -> torch.Tensor:

@@ -95,7 +95,7 @@ def stage_times(model, ab, obs, pose, ks, cls, size, reps):
     obs_crop = stage("zoom of the observed image", lambda: zoom_image_batch(obs, box, size))
     x = stage("network input concat",
               lambda: network_input(obs_crop, rgb.permute(0, 2, 3, 1)))
-    out = stage("network", lambda: model(x))
+    out = stage("network", lambda: model(x, pose_only=True))
 
     def compose():
         quat = decode_rot(select_class(out["rot_raw"], cls), model.rot_type)

@@ -346,10 +346,11 @@ def refine_step(model, assets_b: RenderAssets, obs_rgb: torch.Tensor,
                 out_size: tuple[int, int], zoom_margin: float = 1.4,
                 obs_mask: torch.Tensor | None = None,
                 obs_depth: torch.Tensor | None = None) -> RefineStepOutputs:
-    """One render -> zoom -> CNN -> compose update."""
+    """One render -> zoom -> CNN -> compose update.  The network runs pose
+    only: a training model's flow decoder and mask head are skipped."""
     ni = build_network_inputs(model, assets_b, obs_rgb, pose, k, out_size,
                               zoom_margin, obs_mask=obs_mask, obs_depth=obs_depth)
-    out = model(ni.x)
+    out = model(ni.x, pose_only=True)
     quat = decode_rot(select_class(out["rot_raw"], class_idx), model.rot_type)
     trans = select_class(out["trans"], class_idx)
     clip = torch.tensor(_TRANS_CLIP, dtype=trans.dtype, device=trans.device)

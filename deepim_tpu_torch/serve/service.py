@@ -31,7 +31,9 @@ import torch
 from deepim_tpu_torch.cli.train import load_assets_and_names
 from deepim_tpu_torch.config.config import Config, update_config
 from deepim_tpu_torch.refine.refiner import refine_poses
-from deepim_tpu_torch.train.checkpoint import checkpoint_dir, latest_step, restore_checkpoint
+from deepim_tpu_torch.train.checkpoint import (
+    checkpoint_dir, latest_step, load_params, orbax_dir, require_port_checkpoint,
+    restore_checkpoint)
 from deepim_tpu_torch.train.train import make_model
 
 
@@ -75,8 +77,11 @@ class PoseRefinerService:
         cfg: a Config or a path to an experiment YAML.
         batch_size: device batch (default ``cfg.test.batch_size``).
         load_checkpoint: restore the experiment's latest port checkpoint
-            (``train/checkpoint.py §checkpoint_dir``), if it has one;
-            otherwise the initial weights of generator seed 0.
+            (``train/checkpoint.py §checkpoint_dir``; a training
+            checkpoint's decoder is dropped), if it has one; otherwise the
+            initial weights of generator seed 0.  Raises when the
+            experiment has only the reference's orbax checkpoints (import
+            them with ``import_flax_params``).
         gather_window_s: how long the worker waits to fill a batch after
             the first sample arrives.
         num_iters: refine iterations (default ``cfg.test.test_iter``).
@@ -101,9 +106,12 @@ class PoseRefinerService:
                                 ).to(self.device).eval()
         self.step = 0
         ckpt_dir = checkpoint_dir(cfg)
+        if load_checkpoint:
+            # The reference would serve its trained orbax steps here.
+            require_port_checkpoint(ckpt_dir, orbax_dir(cfg))
         if load_checkpoint and latest_step(ckpt_dir) is not None:
             self.step, params = restore_checkpoint(ckpt_dir, device=self.device)
-            self.model.load_state_dict(params)
+            load_params(self.model, params)
 
         self.batch = int(batch_size or cfg.test.batch_size)
         self.num_iters = int(num_iters or cfg.test.test_iter)

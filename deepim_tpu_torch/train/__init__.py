@@ -1,8 +1,8 @@
-"""Model construction and checkpoints of the port (``deepim_tpu/train``).
-
-Inference only so far: :func:`make_model` and the torch checkpoint format
-of :mod:`~deepim_tpu_torch.train.checkpoint`.  The training step, the
-optimizer and ``init_state`` are ROADMAP A12.
+"""Training of the port (``deepim_tpu/train``): the network builder, the
+losses' assembly, the optimizer and schedule, the train steps (a given
+batch, or synthesis and step fused on the device) and the torch checkpoint
+format of :mod:`~deepim_tpu_torch.train.checkpoint`.  The driver is
+:mod:`deepim_tpu_torch.cli.train`.
 """
 
 from deepim_tpu_torch.train.checkpoint import (
@@ -10,7 +10,21 @@ from deepim_tpu_torch.train.checkpoint import (
     clear_checkpoints,
     import_flax_params,
     latest_step,
+    load_params,
+    merge_pretrained,
     restore_checkpoint,
+    restore_params_raw,
+    restore_train_state,
     save_checkpoint,
+    save_train_state,
 )
-from deepim_tpu_torch.train.train import make_model
+from deepim_tpu_torch.train.train import (
+    TrainState,
+    compute_losses,
+    init_state,
+    make_lr_schedule,
+    make_model,
+    make_optimizer,
+    make_synthetic_train_step,
+    make_train_step,
+)

@@ -1,9 +1,10 @@
-"""deepim_tpu_torch.models (pose-only DeepIMFlowNet + bridge) vs flax.
+"""deepim_tpu_torch.models (DeepIMFlowNet + bridge) vs flax.
 
 Shared random weights go through models/bridge.py; the zero-initialised
 pose heads are randomised at a small scale so the outputs carry the whole
 network.  float32 on both sides: rot_raw/trans agree to 1e-4 of their
-scale (the convolutions sum in another order).
+scale (the convolutions sum in another order); the decoder's flow pyramid
+and mask logits, and one transposed conv alone, to atol 1e-4.
 """
 
 import jax
@@ -101,10 +102,20 @@ def test_bridge_round_trip_exact():
         got = tree[name].get("Conv_0", tree[name])
         for leaf in ("kernel", "bias"):
             np.testing.assert_array_equal(got[leaf], flat[leaf])
-    # Decoder subtrees are skipped; unknown ones are refused.
-    with_decoder = dict(var["params"], deconv5={"kernel": np.zeros(1)},
-                        mask_pred={"kernel": np.zeros(1)})
-    assert flax_to_torch(with_decoder).keys() == sd.keys()
+    # The full tree (decoder and mask head) round-trips exactly too, from
+    # flax and from torch; unknown subtrees are refused.
+    full = _decoder_models((64, 128))[1]["params"]
+    sd_full = flax_to_torch(full)
+    assert len(sd_full) > len(sd) and sd.keys() <= sd_full.keys()
+    back_full = flax_to_torch(torch_to_flax(sd_full))
+    assert back_full.keys() == sd_full.keys()
+    for k in sd_full:
+        assert torch.equal(back_full[k], sd_full[k]), k
+    flat_ref = jax.tree_util.tree_flatten_with_path(full)[0]
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(torch_to_flax(sd_full))[0])
+    assert len(flat_got) == len(flat_ref)
+    for path, leaf in flat_ref:
+        np.testing.assert_array_equal(flat_got[path], leaf, err_msg=str(path))
     with pytest.raises(KeyError):
         flax_to_torch(dict(var["params"], mystery={"kernel": np.zeros(1)}))
 
@@ -152,3 +163,109 @@ def test_identity_heads_and_helpers():
     np.testing.assert_array_equal(
         fn_t.network_input(torch.from_numpy(a), torch.from_numpy(b)).numpy(),
         np.asarray(fn_j.network_input(jnp.asarray(a), jnp.asarray(b))))
+
+
+# --- the decoder and mask heads ---------------------------------------------
+
+
+def _decoder_models(input_size, pose_head="flatten", seed=0):
+    """Flax and torch full networks (flow + mask) on shared random weights:
+    every bias is randomised too (flax initialises them to 0), so a wrong
+    bias mapping shows."""
+    grid = fn_j.bottleneck_grid(*input_size)
+    mj = fn_j.DeepIMFlowNet(num_classes=C, dtype=jnp.float32, head_grid=grid,
+                            pose_head=pose_head)
+    var = mj.init(jax.random.PRNGKey(seed), jnp.zeros((1, *input_size, 6)))
+    params = randomize_heads(jax.tree.map(np.asarray, var["params"]), seed, 0.02)
+    rng = np.random.RandomState(seed + 1)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (a + 0.1 * rng.randn(*a.shape)).astype(np.float32)
+        if path[-1].key == "bias" and a.ndim == 1 and "fc_" not in str(path[0]) else a,
+        params)
+    mt = fn_t.DeepIMFlowNet(num_classes=C, head_grid=grid, dtype=torch.float32,
+                            with_flow=True, with_mask=True, pose_head=pose_head)
+    mt.load_state_dict(flax_to_torch(params))
+    return mj, {"params": params}, mt
+
+
+@pytest.mark.parametrize("input_size,pose_head", [
+    ((48, 64), "flatten"),
+    ((50, 70), "flatten"),  # odd skips: every deconv overshoots and is cropped
+    ((48, 64), "gap"),
+])
+def test_decoder_and_mask_heads_match(input_size, pose_head):
+    mj, var, mt = _decoder_models(input_size, pose_head)
+    x = np.random.RandomState(2).uniform(-0.5, 0.5, (2, *input_size, 6)).astype(np.float32)
+    out_j = mj.apply(var, jnp.asarray(x))
+    with torch.no_grad():
+        out_t = mt(torch.from_numpy(x))
+        pose_only = mt(torch.from_numpy(x), pose_only=True)
+    assert set(out_t["flow"]) == set(out_j["flow"]) == {6, 5, 4, 3, 2}
+    for lvl, ref in out_j["flow"].items():
+        got = out_t["flow"][lvl]
+        assert got.dtype == torch.float32 and got.shape == ref.shape, lvl
+        assert np.abs(np.asarray(ref)).max() > 1e-2, lvl
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-4,
+                                   err_msg=f"flow level {lvl}")
+    ref = np.asarray(out_j["mask_logit"])
+    assert out_t["mask_logit"].shape == ref.shape == (2, -(-input_size[0] // 4),
+                                                       -(-input_size[1] // 4), 1)
+    np.testing.assert_allclose(out_t["mask_logit"].numpy(), ref, rtol=0, atol=1e-4)
+    for key in ("rot_raw", "trans"):
+        np.testing.assert_allclose(out_t[key].numpy(), np.asarray(out_j[key]), rtol=0,
+                                   atol=1e-4, err_msg=key)
+        # The pose-only forward skips the decoder and gives the same pose.
+        assert torch.equal(pose_only[key], out_t[key]), key
+    assert set(pose_only) == {"rot_raw", "trans"}
+
+
+@pytest.mark.parametrize("n", [(5, 8), (6, 7)])
+def test_transposed_conv_padding_and_flip(n):
+    """flax ConvTranspose 4x4/s2 SAME (kernel unflipped, dilated input
+    padded by (2, 2)) == torch conv_transpose2d(padding=1) on the bridged
+    (flipped) kernel: output 2n, at even and odd sizes."""
+    from flax import linen as nn
+
+    layer = nn.ConvTranspose(3, (4, 4), strides=(2, 2), padding="SAME")
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, *n, 5).astype(np.float32)
+    var = layer.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    kernel = rng.randn(4, 4, 5, 3).astype(np.float32)  # not flip-symmetric
+    bias = rng.randn(3).astype(np.float32)
+    ref = np.asarray(layer.apply({"params": {"kernel": kernel, "bias": bias}},
+                                 jnp.asarray(x)))
+    assert ref.shape == (2, 2 * n[0], 2 * n[1], 3)
+    sd = flax_to_torch({"upsample_flow6to5": {"kernel": kernel, "bias": bias}})
+    got = torch.nn.functional.conv_transpose2d(
+        torch.from_numpy(x).permute(0, 3, 1, 2), sd["upsample_flow6to5.weight"],
+        sd["upsample_flow6to5.bias"], stride=2, padding=1).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+    # Without the flip the same layer is off: the flip is the trap.
+    unflipped = torch.from_numpy(np.ascontiguousarray(np.transpose(kernel, (2, 3, 0, 1))))
+    wrong = torch.nn.functional.conv_transpose2d(
+        torch.from_numpy(x).permute(0, 3, 1, 2), unflipped, torch.from_numpy(bias),
+        stride=2, padding=1).permute(0, 2, 3, 1)
+    assert np.abs(wrong.numpy() - ref).max() > 1e-1
+    assert var["params"]["kernel"].shape == kernel.shape
+
+
+def test_decoder_init_and_pose_only_load():
+    # The decoder's weights are drawn after every other, so a model with
+    # and one without the decoder share all other initial weights; a full
+    # state_dict serves a pose-only model through load_params.
+    from deepim_tpu_torch.train.checkpoint import load_params
+
+    g = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    full = fn_t.DeepIMFlowNet(input_size=(64, 64), with_flow=True, with_mask=True,
+                              generator=g())
+    pose = fn_t.DeepIMFlowNet(input_size=(64, 64), generator=g())
+    sd_full, sd_pose = full.state_dict(), pose.state_dict()
+    for k, v in sd_pose.items():
+        assert torch.equal(sd_full[k], v), k
+    w = full.deconv4.weight.detach()  # (in, out, 4, 4): fan-in = in * 16
+    assert abs(float(w.var()) * w.shape[0] * 16 - 1.0) < 0.05
+    load_params(pose, sd_full)
+    with pytest.raises(KeyError):
+        load_params(pose, dict(sd_full, mystery=torch.zeros(1)))
+    with pytest.raises(RuntimeError):  # a missing key still fails
+        load_params(full, sd_pose)

@@ -83,6 +83,20 @@ def test_se3_functions():
            se3_j.project_points(cam_j, jnp.asarray(kb)), atol=5e-3)
 
 
+def test_se3_mul_and_inverse():
+    a, b = _poses(16, 6), _poses(16, 7)
+    ab_t = se3_t.se3_mul(torch.from_numpy(a), torch.from_numpy(b))
+    _close(ab_t, se3_j.se3_mul(jnp.asarray(a), jnp.asarray(b)))
+    inv_t = se3_t.se3_inverse(torch.from_numpy(a))
+    _close(inv_t, se3_j.se3_inverse(jnp.asarray(a)))
+    # broadcast over a symmetry axis, as the point-matching loss uses it
+    syms = _poses(5, 8)
+    _close(se3_t.se3_mul(torch.from_numpy(a)[:, None], torch.from_numpy(syms)),
+           se3_j.se3_mul(jnp.asarray(a)[:, None], jnp.asarray(syms)))
+    eye = se3_t.se3_mul(torch.from_numpy(a), inv_t)
+    _close(eye, np.broadcast_to(np.eye(3, 4, dtype=np.float32), (16, 3, 4)))
+
+
 def test_apply_and_calc_delta():
     src, tgt = _poses(32, 2), _poses(32, 3)
     kb = np.broadcast_to(K, (32, 3, 3)).copy()

@@ -88,3 +88,24 @@ def test_serve_config_is_the_flagship_yaml():
         assert dataclasses.asdict(getattr(cfg, part)) == dataclasses.asdict(getattr(ref, part))
     assert (cfg.network.input_height, cfg.network.input_width) == hl.SIZE
     assert (cfg.test.test_iter, cfg.test.coarse_iters) == (hl.K_ITERS, hl.COARSE_ITERS)
+
+
+def test_train_config_is_the_flagship_training_yaml():
+    # chip_smoke.py trains at this dict: synthetic_all.yaml, unchanged.
+    import dataclasses
+
+    import yaml
+
+    from deepim_tpu.config import update_config
+    from deepim_tpu_torch.config import config_from_dict
+
+    path = "experiments/cfgs/synthetic_all.yaml"
+    with open(path) as f:
+        assert hl.TRAIN_CONFIG == yaml.safe_load(f)
+    cfg, ref = config_from_dict(hl.TRAIN_CONFIG), update_config(path)
+    for part in ("network", "dataset", "train", "test"):
+        assert dataclasses.asdict(getattr(cfg, part)) == dataclasses.asdict(getattr(ref, part))
+    n, t = cfg.network, cfg.train
+    assert (n.input_height, n.input_width, n.dtype) == (*hl.SIZE, "bfloat16")
+    assert n.with_flow and n.with_mask and t.optimizer == "adam"
+    assert (t.batch_size, t.train_iter) == (32, 2)

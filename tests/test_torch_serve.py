@@ -257,3 +257,35 @@ def test_service_matches_reference_service(tmp_path):
     assert moved > 1e-2, moved  # the randomised heads move the poses
     np.testing.assert_allclose(out_t, out_j, rtol=0, atol=1e-3)
     assert svc_t.stats.device_batches == svc_j.stats.device_batches == 2
+
+
+def test_refuses_to_serve_initial_weights_beside_orbax_steps(tmp_path):
+    """An experiment the reference trained has orbax steps under
+    checkpoints/ (directories with all-digit names); with no port
+    checkpoint the service raises, naming import_flax_params, where it
+    used to serve the initial weights."""
+    spec = _cfg(tmp_path, "orbax_only")
+    orbax = tmp_path / "orbax_only" / "checkpoints"
+    (orbax / "2000").mkdir(parents=True)
+    (orbax / "2000" / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(FileNotFoundError, match="import_flax_params") as err:
+        PoseRefinerService(config_from_dict(spec), device="cpu")
+    assert str(orbax) in str(err.value) and "checkpoints_torch" in str(err.value)
+    # Asked not to load, it serves its initial weights as before.
+    PoseRefinerService(config_from_dict(spec), device="cpu", load_checkpoint=False).close()
+    # With neither directory: the seed-0 weights at step 0, as before.
+    fresh = PoseRefinerService(config_from_dict(_cfg(tmp_path, "nothing")), device="cpu")
+    try:
+        assert fresh.step == 0
+    finally:
+        fresh.close()
+    # Once imported, the port checkpoint serves.
+    from deepim_tpu_torch.models.bridge import flax_to_torch
+
+    cfg = config_from_dict(spec)
+    ckpt_t.save_checkpoint(ckpt_t.checkpoint_dir(cfg), 2000, flax_to_torch(_random_params()))
+    svc = PoseRefinerService(cfg, device="cpu")
+    try:
+        assert svc.step == 2000
+    finally:
+        svc.close()
