@@ -103,7 +103,35 @@ Phases, one line each (any failure raises and the script exits nonzero):
    each iteration's inputs card against CPU printed: each gradient within
    5e-2 of its leaf's max, and within 1e-3 where the card takes the CPU's
    zoom box, k_zoom and updated pose; Adam on shared gradients: params
-   within 1e-6).
+   within 1e-6).  Before synthetic_small's directory goes, ``cli.test``
+   scores its 350-step checkpoint on 512 samples: INIT against iteration
+   4, each with its 95 % interval (printed, not gated).
+13. Evaluation at the flagship config (``synthetic_all_c2f.yaml``: 480x640,
+   test B=32, K=4 of which 2 coarse, bf16, four classes of at most 576
+   faces) through ``cli.test.main`` from a port checkpoint of the seed-7
+   random model: 2,048 samples with --save-poses (refine poses/s, seconds,
+   the evaluator's seconds, peak MiB, 5 sorted and 0 cols launches a
+   batch, the BOP CSV against the last iterate within 1e-6); a warm
+   batch's synthesis and refinement ms each alone; the evaluator alone on
+   its 5 x 2,048 rows at 3,000 points (ms, peak MiB) and the ADD-S cross
+   term's peak on one chunk of 256 rows as three products and as the
+   broadcast product it replaced; --no-refine --vis 2 (the same INIT
+   row, two montages); --hypotheses 4 at 45°/6 cm inits on 256 samples (6
+   sorted launches a batch); occlusion_small.yaml on 256 samples (6
+   sorted, 0 cols a batch at 576 faces) and on synthetic_dense's classes
+   (20,480 faces: cols every batch); then card against CPU: each
+   per-sample error of the first 256 rows within rtol 1e-5 (atol 1e-7 m,
+   1e-5°, 1e-4 px), the tables equal but for samples at a threshold
+   (counted), and one eval batch (B=4, float32) through the eval loop
+   (trajectories within 1e-5).
+14. The video toolkit and tracking at the flagship dataset through
+   ``cli.track.main``: 4 single-object sequences of 8 frames in windows
+   of 4 (gen_video's render and PNG-write ms a frame, 2 sorted launches a
+   generated frame, frames/s, 18 sorted launches a sequence); the same
+   call again reuses the data (no "generating" line), --num-frames 6 does
+   not; recovery armed over 2 occluders; ``_render_frame`` of a 2-object
+   frame card against CPU (raster tolerance; labels equal off depth ties
+   within 1e-5 m).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -1051,6 +1079,7 @@ BF16_FLOPS_PER_S = 989e12
 TRAIN_STEPS = 20  # timed fused steps at each size
 OVERFIT_STEPS = 80  # tests/test_train.py §test_micro_overfit
 SMALL_STEPS, SMALL_RESUME = 300, 350  # synthetic_small.yaml through cli.train
+TRAINED_EVAL_N = 512  # cli.test on the checkpoint cli.train wrote
 TRAIN_PARITY_B = 2
 TRAIN_RTOL, GRAD_FRAC, PARAM_ATOL = 1e-4, 1e-3, 1e-6
 # The card's float32 gradient against its float64 one at train_iter 1:
@@ -1288,6 +1317,22 @@ def phase_train_cli(dev, card):
             raise AssertionError(f"--resume did not continue the run: {steps[-5:]}")
         if latest_step(ckpt) != SMALL_RESUME or not last < first:
             raise AssertionError("synthetic_small: no checkpoint, or the loss did not fall")
+
+        # The trained checkpoint scored before its directory goes: INIT
+        # against the last iteration, each with its 95 % interval (printed,
+        # not gated).
+        from deepim_tpu_torch.cli import test as cli_test
+
+        rows = {}
+        for tag, extra in (("init", ["--no-refine"]), ("refined", [])):
+            _, eval_s, _, _ = run_cli(cli_test.main, ["--cfg", str(path), "--device", str(dev),
+                                                      "--num-samples", str(TRAINED_EVAL_N),
+                                                      *extra])
+            res = json.loads((Path(tmp) / spec["experiment"] / "eval_results.json").read_text())
+            rows[tag] = {k: f"{res['mean'][k]:.2f}+-{res['mean']['ci95'][k]:.2f}"
+                         for k in ("add(-s)_0.1d", "5deg_5cm", "proj2d_5px")}
+        log("trained_eval", config="synthetic_small", step=SMALL_RESUME, samples=TRAINED_EVAL_N,
+            init=rows["init"], iter4=rows["refined"], eval_s=eval_s)
 
 
 @contextlib.contextmanager
@@ -1534,6 +1579,429 @@ def phase_train_parity(dev, card, assets):
         raise AssertionError(f"a train step on the card disagrees with the CPU path: {held}")
 
 
+# The evaluator card against CPU: each per-sample error within rtol, with
+# an atol by unit (metres, degrees, pixels).
+EVAL_RTOL = 1e-5
+EVAL_ATOL = {"add": 1e-7, "adds": 1e-7, "add_sym": 1e-7, "trans_m": 1e-7, "rot_deg": 1e-5,
+             "proj2d_px": 1e-4}
+EVAL_PARITY_ROWS = 256  # the flagship trajectory's first rows, scored on both devices
+EVAL_PARITY_B = 4  # one eval batch through the eval loop on both devices
+EVAL_TRAJ_ATOL = 1e-5  # refine_poses card against CPU reads ~5e-7 (phase 4)
+BOP_ATOL = 1e-6
+EVAL_SAMPLES, HYP_SAMPLES = 2048, 256  # cli.test's default set; the gross-init run
+OCC_SAMPLES, OCC_DENSE_SAMPLES = 256, 64
+TRACK_FRAMES, TRACK_WINDOW = 8, 4
+LABEL_TIE_M = 1e-5  # labels may differ where two objects' depths are this close
+
+
+def run_cli(main_fn, argv):
+    """``main_fn(argv)`` with its stdout captured -> (text, seconds, the
+    raster launches it made, its peak device MiB above what was held)."""
+    import io
+
+    from deepim_tpu_torch.raster import raster_cuda as rc
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rc.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = main_fn(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if code:
+        raise AssertionError(f"{argv} exited {code}:\n{out.getvalue()[-2000:]}")
+    return (out.getvalue(), seconds, dict(rc.LAUNCHES),
+            (torch.cuda.max_memory_allocated() - base) / 2**20)
+
+
+def experiment_yaml(tmp: str, name: str, **overrides) -> str:
+    """experiments/cfgs/<name> with output_dir in ``tmp`` (and the dataset
+    fields of ``overrides``), written to ``tmp`` -> its path."""
+    import yaml
+
+    with open(ROOT / "experiments" / "cfgs" / name) as f:
+        spec = yaml.safe_load(f)
+    spec["output_dir"] = tmp
+    spec["dataset"].update(overrides)
+    if overrides:
+        spec["experiment"] += "_" + "_".join(overrides)
+    path = Path(tmp) / name
+    path.write_text(yaml.safe_dump(spec))
+    return str(path)
+
+
+def _number(pattern: str, text: str) -> float:
+    import re
+
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"no {pattern!r} in:\n{text[-2000:]}")
+    return float(m.group(1))
+
+
+def _row(text: str, tag: str) -> str:
+    return next(ln for ln in text.splitlines() if ln.startswith(tag))
+
+
+def adds_broadcast(points, pose_est, pose_gt, point_block):
+    """ADD-S with its cross term as the broadcast multiply-sum of
+    ``geometry/se3.py §_mm``, the form ``pose_errors.adds_error`` had
+    before its three-products rewrite: kept here to measure what its
+    (chunk, N, 3, block) product held."""
+    from deepim_tpu_torch.geometry.pose_errors import _posed
+    from deepim_tpu_torch.geometry.se3 import _mm
+
+    p_est, p_gt = _posed(points, pose_est), _posed(points, pose_gt)
+    center = p_gt.mean(-2, keepdim=True)
+    p_est, p_gt = p_est - center, p_gt - center
+    sq_gt = (p_gt * p_gt).sum(-1)
+    min_d2 = torch.full_like(sq_gt, math.inf)
+    for i0 in range(0, p_est.shape[-2], point_block):
+        block = p_est[..., i0:i0 + point_block, :]
+        cross = _mm(p_gt, block.transpose(-1, -2))
+        d2 = sq_gt[..., :, None] + (block * block).sum(-1)[..., None, :] - 2.0 * cross
+        min_d2 = torch.minimum(min_d2, d2.clamp_min(0.0).amin(-1))
+    return min_d2.sqrt().mean(-1)
+
+
+def _near_thresholds(errs, diam, cls, symmetric, th) -> int:
+    """Samples whose error lies within the card-against-CPU tolerance of
+    one of the table's thresholds (a comparison that may flip)."""
+    import numpy as np
+
+    near = np.zeros(len(cls), bool)
+    add_like = np.where(np.asarray(symmetric)[cls], errs["adds"], errs["add"])
+    for key, vals, thr in (("add", add_like, th.add_frac * diam[cls]),
+                           ("add", errs["add"], th.add_frac * diam[cls]),
+                           ("adds", errs["adds"], th.add_frac * diam[cls]),
+                           ("rot_deg", errs["rot_deg"], th.rot_deg),
+                           ("trans_m", errs["trans_m"], th.trans_m),
+                           ("proj2d_px", errs["proj2d_px"], th.proj_px)):
+        near |= np.abs(vals - thr) <= EVAL_ATOL[key] + EVAL_RTOL * np.abs(thr)
+    return int(near.sum())
+
+
+def phase_evaluation(dev, card, rc, counts):
+    """Evaluation at full width: ``cli.test.main`` at the flagship config
+    (experiments/cfgs/synthetic_all_c2f.yaml: 480x640, test B=32, K=4 of
+    which 2 coarse at 240x320, bf16, four classes of at most 576 faces,
+    2,048 samples) from a port checkpoint of the phases' seed-7 random
+    model, with --save-poses; the evaluator alone on its 5 x 2,048 rows
+    (ms, peak MiB, and the peak of the ADD-S cross term as a broadcast
+    product); --no-refine (the same INIT row) with --vis; --hypotheses 4
+    at gross inits; the occlusion set of occlusion_small.yaml, and of it
+    on the dense classes of synthetic_dense.yaml; then card against CPU:
+    the evaluator on the first 256 rows of the flagship trajectory, and one
+    eval batch (B=4, float32) through the eval loop."""
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.eval import (
+        EvalThresholds, compute_pose_errors, evaluate_poses, read_bop_csv)
+    from deepim_tpu_torch.geometry.pose_errors import adds_error
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = experiment_yaml(tmp, "synthetic_all_c2f.yaml")
+        cfg = update_config(path)
+        save_checkpoint(checkpoint_dir(cfg), hl.SEED, hl.random_model(4).state_dict())
+        dev_arg = ["--device", str(dev)]
+        bs, k_iters = cfg.test.batch_size, cfg.test.test_iter
+        n = EVAL_SAMPLES
+        text, seconds, launches, peak = run_cli(
+            cli_test.main, ["--cfg", path, *dev_arg, "--save-poses", "--num-samples", str(n)])
+        batches = n // bs
+        counts["eval_flagship"] = launches
+        out_dir = Path(tmp) / cfg.experiment
+        npz = np.load(out_dir / "refined_poses.npz")
+        traj, gt, cls, ks = npz["traj"], npz["pose_gt"], npz["class_idx"], npz["k"]
+        bop = read_bop_csv(str(out_dir / "bop_results.csv"))
+        bop_err = float(np.abs(bop["poses"] - traj[-1]).max())
+        expect_sorted = batches * (1 + k_iters)  # the observed frame, then one crop an iteration
+        log("eval", config=cfg.experiment, samples=n, batch=bs, iters=k_iters,
+            coarse_iters=cfg.test.coarse_iters, dtype=cfg.network.dtype,
+            refine_poses_per_s=_number(r"\(([\d.]+) poses/s", text), seconds=seconds,
+            evaluate_s=_number(r"poses in ([\d.]+)s", text), peak_mib=peak,
+            sorted_per_batch=launches["raster_sorted"] / batches,
+            cols_per_batch=launches["raster_cols"] / batches,
+            predicted_sorted_per_batch=1 + k_iters, predicted_cols_per_batch=0,
+            init_row=_row(text, "[INIT]"), last_row=_row(text, f"[iter {k_iters}]"),
+            bop_max_err=bop_err, card=repr(card))
+        if traj.shape != (k_iters + 1, n, 3, 4) or not np.isfinite(traj).all():
+            raise AssertionError(f"refined_poses.npz holds {traj.shape}")
+        if launches["raster_sorted"] != expect_sorted or launches["raster_cols"]:
+            raise AssertionError(f"an eval render missed the sorted kernel: {launches}")
+        if not bop_err <= BOP_ATOL:
+            raise AssertionError("bop_results.csv does not read back as the last iterate")
+
+        # Where a batch's time goes once warm: its draw and render
+        # (synthetic_batch) and its refinement, each timed alone.
+        assets, names, symmetric = load_assets_and_names(cfg, eval_set=True, device=dev)
+        model = hl.random_model(4).to(dev).eval()
+        k_cam = make_intrinsics(*(getattr(cfg.dataset, f) for f in ("fx", "fy", "cx", "cy")),
+                                device=dev)
+        batch = next(cli_test.eval_stream(cfg, assets, k_cam, 1, bs))
+        kw = dict(num_iters=k_iters, out_size=(cfg.network.input_height, cfg.network.input_width),
+                  coarse_iters=cfg.test.coarse_iters)
+        draw_ms = ms_per_call(lambda: next(cli_test.eval_stream(cfg, assets, k_cam, 1, bs)), 5)
+        refine_ms = ms_per_call(lambda: cli_test.refine_batches(model, assets, [batch], k_cam,
+                                                                **kw), 5)
+        log("eval_batch", batch=bs, synthetic_batch_ms=draw_ms, refine_ms=refine_ms,
+            steady_poses_per_s=bs / (draw_ms + refine_ms) * 1e3,
+            cli_batches_ms=(n / _number(r"\(([\d.]+) poses/s", text)) / batches * 1e3)
+        del model
+
+        # The evaluator alone on the five iterations' rows, and the ADD-S
+        # cross term's memory in both forms on one chunk of 256 rows.
+        t0 = time.perf_counter()
+        (_, eval_peak) = peak_memory(lambda: [evaluate_poses(assets, names, symmetric, traj[i],
+                                                             gt, cls, ks)
+                                              for i in range(traj.shape[0])])
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        rows = slice(0, 256)
+        idx = torch.from_numpy(cls[rows]).long().to(dev)
+        pts = assets.points.index_select(0, idx)
+        est_t, gt_t = (torch.from_numpy(a[rows]).to(dev) for a in (traj[-1], gt))
+        new, new_peak = peak_memory(lambda: adds_error(pts, est_t, gt_t, point_block=512))
+        old, old_peak = peak_memory(lambda: adds_broadcast(pts, est_t, gt_t, 512))
+        log("eval_evaluator", rows=f"{traj.shape[0]}x{n}", points=pts.shape[1],
+            chunk=256, point_block=512, ms=eval_ms, peak_mib=eval_peak,
+            adds_chunk_peak_mib=new_peak, adds_broadcast_chunk_peak_mib=old_peak,
+            adds_forms_max_diff=(new - old).abs().max().item())
+
+        text0, _, _, _ = run_cli(cli_test.main, ["--cfg", path, *dev_arg, "--no-refine",
+                                                 "--vis", "2", "--num-samples", str(n)])
+        vis = sorted(p.name for p in (out_dir / "vis").iterdir())
+        log("eval_no_refine", init_row=_row(text0, "[INIT]"), vis=vis)
+        if _row(text0, "[INIT]") != _row(text, "[INIT]") or len(vis) != 2:
+            raise AssertionError("--no-refine printed another INIT row, or no montages")
+
+        nh, hyp_n = 4, HYP_SAMPLES
+        text_h, sec_h, l_h, peak_h = run_cli(cli_test.main, [
+            "--cfg", path, *dev_arg, "--hypotheses", str(nh), "--init-rot-noise", "45",
+            "--init-trans-noise", "0.06", "--num-samples", str(hyp_n)])
+        counts["eval_hypotheses"] = l_h
+        hb = hyp_n // bs
+        log("eval_hypotheses", hypotheses=nh, samples=hyp_n,
+            refine_poses_per_s=_number(r"\(([\d.]+) poses/s", text_h), seconds=sec_h,
+            peak_mib=peak_h, sorted_per_batch=l_h["raster_sorted"] / hb,
+            cols_per_batch=l_h["raster_cols"] / hb,
+            expected_sorted_per_batch=1 + k_iters + 1,  # + the score render
+            init_row=_row(text_h, "[INIT]"), best_row=_row(text_h, "[iter 1]"))
+        if l_h["raster_sorted"] != hb * (k_iters + 2) or l_h["raster_cols"]:
+            raise AssertionError(f"multi-hypothesis renders missed the sorted kernel: {l_h}")
+
+        for run, overrides, samples in (
+                ("eval_occlusion", {}, OCC_SAMPLES),
+                ("eval_occlusion_dense",
+                 {"objects": ["icosphere_dense", "icosphere_dense2", "torus_dense",
+                              "cylinder_dense"]}, OCC_DENSE_SAMPLES)):
+            occ_path = experiment_yaml(tmp, "occlusion_small.yaml", **overrides)
+            occ_cfg = update_config(occ_path)
+            text_o, sec_o, l_o, peak_o = run_cli(cli_test.main, [
+                "--cfg", occ_path, *dev_arg, "--num-samples", str(samples)])
+            counts[run] = l_o
+            ob = samples // occ_cfg.test.batch_size
+            faces = max(PROCEDURAL_MESHES[o]().num_faces for o in occ_cfg.dataset.objects)
+            log(run, samples=samples, faces=faces,
+                size=f"{occ_cfg.dataset.image_height}x{occ_cfg.dataset.image_width}",
+                crop=f"{occ_cfg.network.input_height}x{occ_cfg.network.input_width}",
+                refine_poses_per_s=_number(r"\(([\d.]+) poses/s", text_o), seconds=sec_o,
+                peak_mib=peak_o, sorted_per_batch=l_o["raster_sorted"] / ob,
+                cols_per_batch=l_o["raster_cols"] / ob,
+                fallback_per_batch=l_o["cols_fallback"] / ob,
+                init_row=_row(text_o, "[INIT]"), last_row=_row(text_o, "[iter 4]"))
+            dense = faces >= rc._COLS_MIN_FACES_CROP
+            # Under 1,024 faces every render is sorted (the scene, the
+            # target-only depth, the crops); dense classes take cols.
+            if dense and not l_o["raster_cols"] >= ob:
+                raise AssertionError(f"dense occlusion renders missed the cols kernel: {l_o}")
+            if not dense and (l_o["raster_cols"] or l_o["raster_sorted"] != ob * (2 + k_iters)):
+                raise AssertionError(f"occlusion renders missed the sorted kernel: {l_o}")
+
+        # Card against CPU: the evaluator on the same rows.
+        assets_cpu, _, _ = load_assets_and_names(cfg, eval_set=True, device="cpu")
+        rows = slice(0, EVAL_PARITY_ROWS)
+        args = (traj[-1][rows], gt[rows], cls[rows], ks[rows])
+
+        def errors(a):
+            i = torch.from_numpy(args[2]).long().to(a.points.device)
+            out = compute_pose_errors(
+                a.points.index_select(0, i), a.sym_poses.index_select(0, i),
+                *(torch.from_numpy(x).to(a.points.device) for x in (args[0], args[1], args[3])),
+                point_block=512)
+            return {key: v.cpu().numpy() for key, v in out.items()}
+
+        t0 = time.perf_counter()
+        e_cpu = errors(assets_cpu)
+        cpu_s = time.perf_counter() - t0
+        e_card = errors(assets)
+        worst = {key: float((np.abs(e_card[key] - e_cpu[key])
+                             - EVAL_RTOL * np.abs(e_cpu[key])).max()) for key in e_cpu}
+        held = all(worst[key] <= EVAL_ATOL[key] for key in worst)
+        res_cpu = evaluate_poses(assets_cpu, names, symmetric, *args)
+        res_card = evaluate_poses(assets, names, symmetric, *args)
+        near = _near_thresholds(e_cpu, assets_cpu.diameters.numpy(), args[2], symmetric,
+                                EvalThresholds())
+        table_diff = {
+            key: max(abs(res_card["per_class"][c][key] - res_cpu["per_class"][c][key])
+                     for c in res_cpu["per_class"])
+            for key in ("add(-s)_0.1d", "add_0.1d", "adds_0.1d", "5deg_5cm", "proj2d_5px")}
+        log("eval_parity", rows=EVAL_PARITY_ROWS, points=assets.points.shape[1],
+            max_excess_over_rtol={k: f"{v:.3g}" for k, v in worst.items()},
+            rtol=EVAL_RTOL, atol=EVAL_ATOL, held=held, samples_near_a_threshold=near,
+            table_max_diff=table_diff, cpu_s=cpu_s)
+        if not held or (near == 0 and any(table_diff.values())):
+            raise AssertionError("the evaluator on the card disagrees with the CPU path")
+
+        # Card against CPU: one eval batch made on the CPU through the eval loop.
+        model_cpu = hl.random_model(4, dtype=torch.float32)
+        model_card = copy.deepcopy(model_cpu).to(dev)
+        d = cfg.dataset
+        k_cpu = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device="cpu")
+        batch = next(cli_test.eval_stream(cfg, assets_cpu, k_cpu, 1, EVAL_PARITY_B))
+        kw = dict(num_iters=k_iters, out_size=(cfg.network.input_height, cfg.network.input_width),
+                  coarse_iters=cfg.test.coarse_iters)
+        t0 = time.perf_counter()
+        traj_cpu = cli_test.refine_batches(model_cpu, assets_cpu, [batch], k_cpu, **kw)["traj"]
+        cpu_s = time.perf_counter() - t0
+        traj_card = cli_test.refine_batches(model_card, assets, [batch], k_cpu, **kw)["traj"]
+        diff = (traj_card.cpu() - traj_cpu).abs().max().item()
+        moved = (traj_cpu[-1] - traj_cpu[0]).abs().max().item()
+        log("eval_parity", case="eval_loop", batch=EVAL_PARITY_B, dtype="float32",
+            max_pose_diff=diff, atol=EVAL_TRAJ_ATOL, moved=moved, cpu_s=cpu_s)
+        if not diff <= EVAL_TRAJ_ATOL or not moved > 1e-3:
+            raise AssertionError("the eval loop on the card disagrees with the CPU path")
+
+
+def phase_tracking(dev, card, rc, counts):
+    """The video toolkit and tracking at full width: ``cli.track.main`` at
+    the flagship dataset (480x640, the four classes, one object a sequence
+    so 4 sequences, TRACK_FRAMES frames, windows of TRACK_WINDOW: one
+    boundary crossed), from the seed-7 random model: gen_video's ms a frame
+    (render, PNG write), frames/s and launches a sequence; the identical
+    call again (the manifest matches: no generation); --num-frames 6 (it
+    does not); recovery armed over 2 occluders; then ``_render_frame`` of
+    one 2-object frame card against CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import track as cli_track
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.data.video import _render_frame
+    from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+    from deepim_tpu_torch.raster.raster_ref import Lighting
+    from deepim_tpu_torch.refine import build_assets, gather_class, render_crops
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = experiment_yaml(tmp, "synthetic_all_c2f.yaml")
+        cfg = update_config(path)
+        save_checkpoint(checkpoint_dir(cfg), hl.SEED, hl.random_model(4).state_dict())
+        base = ["--cfg", path, "--device", str(dev), "--num-frames", str(TRACK_FRAMES),
+                "--window", str(TRACK_WINDOW)]
+        seqs = len(cfg.dataset.objects)
+        text1, sec1, l1, _ = run_cli(cli_track.main, base)
+        text2, sec2, l2, peak2 = run_cli(cli_track.main, base)
+        counts["track"] = l2
+        gen = {k: l1[k] - l2[k] for k in l1}
+        counts["gen_video"] = gen
+        per_seq = 4 + (TRACK_FRAMES - 1) * 2  # --iters-first 4 on frame 0, 2 on the others
+        frames = seqs * TRACK_FRAMES
+        log("track", sequences=seqs, frames=TRACK_FRAMES, window=TRACK_WINDOW,
+            size=f"{cfg.dataset.image_height}x{cfg.dataset.image_width}",
+            gen_render_ms_per_frame=_number(r"render ([\d.]+) ms a frame", text1),
+            gen_png_write_ms_per_frame=_number(r"PNG write ([\d.]+) ms a frame", text1),
+            gen_seconds=sec1 - sec2, gen_sorted_per_frame=gen["raster_sorted"] / frames,
+            gen_cols_per_frame=gen["raster_cols"] / frames,
+            frames_per_s=_number(r"\(([\d.]+) frames/s", text2), seconds=sec2,
+            load_s=_number(r"loading ([\d.]+)s", text2),
+            refine_s=_number(r"refining ([\d.]+)s", text2), peak_mib=peak2,
+            sorted_per_sequence=l2["raster_sorted"] / seqs,
+            cols_per_sequence=l2["raster_cols"] / seqs, expected_sorted_per_sequence=per_seq,
+            mean_row=_row(text2, "MEAN"), card=repr(card))
+        if "generating" not in text1 or "generating" in text2 or "reusing" not in text2:
+            raise AssertionError("the second identical call did not reuse the generated data")
+        if l2["raster_sorted"] != seqs * per_seq or l2["raster_cols"]:
+            raise AssertionError(f"a tracking render missed the sorted kernel: {l2}")
+        if gen["raster_sorted"] != 2 * frames or gen["raster_cols"]:
+            raise AssertionError(f"gen_video rendered off its two sorted renders a frame: {gen}")
+
+        text3, _, _, _ = run_cli(cli_track.main, base[:4] + ["--num-frames", "6"] + base[6:])
+        dirs = sorted(p.name for p in (Path(tmp) / cfg.experiment).iterdir()
+                      if p.name.startswith("video_data_"))
+        log("track_manifest", reused_identical=True, regenerated_at_6_frames="generating" in text3,
+            data_dirs=dirs)
+        if "generating" not in text3 or len(dirs) != 2:
+            raise AssertionError("--num-frames 6 reused data generated for 8 frames")
+
+        text4, sec4, l4, peak4 = run_cli(
+            cli_track.main, base + ["--occluders", "2", "--recover-threshold", "-0.12"])
+        counts["track_armed"] = l4
+        low = [ln for ln in text4.splitlines() if "low-confidence" in ln]
+        log("track_armed", occluders=2, recover_threshold=-0.12,
+            gen_render_ms_per_frame=_number(r"render ([\d.]+) ms a frame", text4),
+            gen_png_write_ms_per_frame=_number(r"PNG write ([\d.]+) ms a frame", text4),
+            frames_per_s=_number(r"\(([\d.]+) frames/s", text4), seconds=sec4, peak_mib=peak4,
+            launches=l4, low_confidence_windows=len(low), mean_row=_row(text4, "MEAN"))
+
+    # Card against CPU: one 2-object frame at 480x640.
+    names = list(cfg.dataset.objects)
+    meshes = [PROCEDURAL_MESHES[n]() for n in names]
+    image = (cfg.dataset.image_height, cfg.dataset.image_width)
+    k_np = np.array([[cfg.dataset.fx, 0, cfg.dataset.cx], [0, cfg.dataset.fy, cfg.dataset.cy],
+                     [0, 0, 1]], np.float32)
+    rng = np.random.RandomState(11)
+    poses = np.zeros((2, 3, 4), np.float32)
+    for i, tz in enumerate((0.62, 0.7)):
+        q = rng.randn(4)
+        poses[i] = np.concatenate([_quat_mat(q / np.linalg.norm(q)),
+                                   [[0.03 * (2 * i - 1)], [0.01], [tz]]], 1)
+    cls = torch.tensor([1, 3])  # icosphere, torus
+    light = Lighting(0.6, 0.5, (0.2, -0.3, -1.0))
+    outs = {}
+    for where in ("cpu", dev):
+        a = build_assets(meshes, num_points=256, device=where)
+        args = (cls.to(where), torch.from_numpy(poses).to(where), torch.from_numpy(k_np).to(where))
+        outs[str(where)] = [t.cpu() for t in _render_frame(a, *args, image, light)]
+        if where == "cpu":
+            deps = render_crops(gather_class(a, args[0]), args[1],
+                                args[2].expand(2, 3, 3).contiguous(), image)[1]
+    (rgb_c, d_c, lab_c), (rgb_k, d_k, lab_k) = outs["cpu"], outs[str(dev)]
+    rgb_off, dep_off, err = mismatch((rgb_k, d_k), (rgb_c, d_c))
+    both = (deps > 0).all(0)
+    ties = both & ((deps[0] - deps[1]).abs() < LABEL_TIE_M)
+    label_off = ((lab_k != lab_c) & ~ties).sum().item()
+    log("track_parity", case="render_frame", size=f"{image[0]}x{image[1]}", objects=2,
+        rgb_mismatch=rgb_off, depth_mismatch=dep_off, max_abs_err=err,
+        label_pixels=int((lab_c > 0).sum()), overlap_pixels=int(both.sum()),
+        tie_pixels=int(ties.sum()), labels_off_ties=label_off,
+        labels_differing=int((lab_k != lab_c).sum()))
+    if rgb_off > RASTER_FRAC or dep_off > RASTER_FRAC or label_off or not both.any():
+        raise AssertionError("_render_frame on the card disagrees with the CPU path")
+
+
+def _quat_mat(q):
+    import numpy as np
+
+    w, x, y, z = q
+    return np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                     [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                     [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1572,7 +2040,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-12 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-14 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -1635,7 +2103,7 @@ def run_phases(dev, card: str) -> list[dict]:
         serial_ms=[s * 1e3 for s in serial], batch=hl.B, iters=hl.K_ITERS,
         coarse_iters=hl.COARSE_ITERS, dtype="bf16", card=repr(card))
 
-    # This slice: the top-k kernel, scene synthesis, the top-k route, and
+    # The top-k kernel, scene synthesis, the top-k route, and
     # card-against-CPU parity of the scene render and textured refinement.
     record["raster_topk"] = phase_topk_kernel(dev, assets, init, ks, cls, rc)
     tex_assets = hl.headline_assets(dev, textured=True)
@@ -1644,12 +2112,16 @@ def run_phases(dev, card: str) -> list[dict]:
     counts.update(phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls))
     phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls)
 
-    # This slice: the service, multi-hypothesis selection and tracking.
+    # The service, multi-hypothesis selection and tracking.
     phase_service(dev, card, rc, counts)
     phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts)
 
-    # This slice: training at the flagship config.
+    # Training at the flagship config.
     phase_training(dev, card, rc, counts)
+
+    # Evaluation, and the video toolkit with tracking.
+    phase_evaluation(dev, card, rc, counts)
+    phase_tracking(dev, card, rc, counts)
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -21,6 +21,12 @@ model builder and torch checkpoints that carry weights trained by the
 JAX package; and training: the flow decoder and mask head, the losses
 (:mod:`deepim_tpu_torch.losses`), flow ground truth, the optimizer and the
 fused synthesize-and-train step (:mod:`deepim_tpu_torch.train`) driven by
-``python -m deepim_tpu_torch.cli.train``.  All three rasterizer kernels
-are hand-written CUDA (``raster/csrc``), built at first use on the card.
+``python -m deepim_tpu_torch.cli.train``; and evaluation: the ADD(-S)/(5°,
+5 cm)/Proj-2D evaluator with its Wilson intervals and the BOP export
+(:mod:`deepim_tpu_torch.eval`), ``python -m deepim_tpu_torch.cli.test`` on
+the generated sets, ``cli.train_test``, and the video toolkit
+(:mod:`deepim_tpu_torch.data.video`: sequences written with the port's
+own PNG codec, ``gen_video`` with its manifest) with ``cli.track``.  All
+three rasterizer kernels are hand-written CUDA (``raster/csrc``), built
+at first use on the card.
 """

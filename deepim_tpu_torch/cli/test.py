@@ -1,0 +1,319 @@
+"""Testing driver: ``python -m deepim_tpu_torch.cli.test --cfg <yaml>``.
+
+Port of ``deepim_tpu/cli/test.py`` on one device: ``cuda:0`` unless
+``--device`` names another (``--device cpu`` for the CPU); without CUDA it
+raises rather than fall back.  It restores the experiment's port
+checkpoint, runs the K-iteration refinement (or, with ``--hypotheses``,
+multi-hypothesis refinement and selection) over a generated test set,
+prints the reference's per-iteration lines and ADD(-S)/(5°, 5 cm)/Proj-2D
+table, and writes ``eval_results.json``, with ``--save-poses``
+``refined_poses.npz`` and ``bop_results.csv``, with ``--vis`` overlay
+montages under ``vis/``.
+
+The test sets are generated on the device: ``synthetic*`` and ``modelnet``
+batch ``i`` is :func:`~deepim_tpu_torch.data.synthetic_batch` from a
+``torch.Generator`` seeded ``9000 + i``, ``synthetic_occlusion`` batch
+``i`` :func:`~deepim_tpu_torch.data.synthetic_occlusion_batch` from one
+seeded ``1000 + i``.  These are the port's own fixed protocol sets: torch
+generators draw other numbers than the reference's JAX keys, so a port
+table and a reference table are never computed on the same draws (and a
+card's draws differ from the CPU's).
+
+Not ported yet: the on-disk datasets (``lm6d*``, ``ycb_video``: ROADMAP
+A13, second half, with ``--init-poses`` and ``--posecnn-mat``, which
+raise on generated data as in the reference) and int8 inference
+(``--quant``, ROADMAP A10); both raise before any batch is drawn.  One
+card needs no data-parallel branch (multi-GPU is ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate a deepim_tpu_torch model")
+    p.add_argument("--cfg", required=True)
+    p.add_argument("--num-samples", type=int, default=0,
+                   help="generated eval set size (0 = max(2048, 8*batch), so the "
+                        "tables' CIs resolve few-point deltas)")
+    p.add_argument("--no-refine", action="store_true",
+                   help="evaluate the init poses only (baseline row)")
+    p.add_argument("--hypotheses", type=int, default=1,
+                   help=">1: multi-hypothesis refinement with render-agreement "
+                        "selection (occlusion protocol)")
+    p.add_argument("--coarse-iters", type=int, default=-1,
+                   help="override cfg.test.coarse_iters (-1 = the config's)")
+    p.add_argument("--vis", type=int, default=0,
+                   help="write rendered-vs-observed overlay montages (INIT, each "
+                        "iteration, GT) for the first N samples")
+    p.add_argument("--init-poses", default="",
+                   help="BOP results CSV of external init poses (on-disk datasets; "
+                        "not ported yet)")
+    p.add_argument("--posecnn-mat", default="",
+                   help="PoseCNN per-keyframe .mat results (ycb_video; not ported yet)")
+    p.add_argument("--init-rot-noise", type=float, default=-1.0,
+                   help="override the init rotation noise std (degrees; max = 3x std)")
+    p.add_argument("--init-trans-noise", type=float, default=-1.0,
+                   help="override the init translation noise std (metres, all axes; "
+                        "max = 3x std)")
+    p.add_argument("--quant-calib", default="max_c",
+                   help="int8_static calibration estimator (int8 is not ported yet)")
+    p.add_argument("--quant", default="", choices=("", "none", "int8", "int8_static"),
+                   help="override cfg.network.quant (int8 modes are not ported yet)")
+    p.add_argument("--seed", type=int, default=-1,
+                   help="evaluate a seed-variance training run: suffixes the experiment "
+                        "dir with _seed<k> like cli.train --seed (the eval set stays the "
+                        "fixed one)")
+    p.add_argument("--results-out", default="",
+                   help="also write the eval results JSON, wrapped with argv and git "
+                        "metadata, to this path")
+    p.add_argument("--save-poses", action="store_true",
+                   help="write refined_poses.npz (per-iteration trajectories) and "
+                        "bop_results.csv (final poses)")
+    p.add_argument("--device", default="cuda:0",
+                   help="torch device to evaluate on (default cuda:0; 'cpu' for the CPU)")
+    return p.parse_args(argv)
+
+
+def generated(name: str) -> bool:
+    """Whether ``dataset.name`` is a set the package generates itself."""
+    return name.startswith("synthetic") or name == "modelnet"
+
+
+def eval_stream(cfg, assets, k_cam: torch.Tensor, num_batches: int, batch_size: int):
+    """The generated test set, batch by batch, on the assets' device."""
+    from deepim_tpu_torch.data.synthetic import synthetic_batch, synthetic_occlusion_batch
+
+    d, t = cfg.dataset, cfg.train
+    occlusion = d.name == "synthetic_occlusion"
+    draw, base = ((synthetic_occlusion_batch, 1000) if occlusion
+                  else (synthetic_batch, 9000))
+    dev = assets.points.device
+    for i in range(num_batches):
+        yield draw(torch.Generator(device=dev).manual_seed(base + i), assets, batch_size,
+                   k_cam, (d.image_height, d.image_width), rot_noise_deg=t.rot_noise_deg,
+                   rot_max_deg=t.rot_noise_max_deg, trans_noise=tuple(t.trans_noise),
+                   trans_max=tuple(t.trans_noise_max))
+
+
+@torch.no_grad()
+def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
+                   out_size: tuple[int, int], coarse_iters: int = 0,
+                   coarse_size: tuple[int, int] | None = None, hypotheses: int = 1,
+                   no_refine: bool = False, want_depth: bool = False,
+                   with_mask: bool = False, vis: int = 0) -> dict:
+    """The eval loop: refine every batch of ``batches`` (dicts with
+    ``obs_rgb``, ``pose_src``, ``pose_tgt``, ``class_idx`` and, as the
+    model and ``want_depth`` need them, ``obs_mask`` and ``obs_depth``),
+    moved to the assets' device.
+
+    Returns ``traj`` ((num_iters + 1, n, 3, 4) on the device, the inits
+    first; (2, n, 3, 4) with ``no_refine`` or ``hypotheses`` > 1),
+    ``pose_gt`` and ``class_idx`` (numpy) and ``vis_rows``, the first
+    ``vis`` observed frames (numpy).  Batch ``bi`` of ``bs`` rows draws its
+    hypotheses from a generator seeded ``17 + bi*bs``.
+    """
+    from deepim_tpu_torch.refine import refine_multi_hypothesis, refine_poses
+
+    dev = assets.points.device
+    trajs, gt_parts, cls_parts, vis_rows = [], [], [], []
+    for bi, batch in enumerate(batches):
+        obs = batch["obs_rgb"].to(dev)
+        init = batch["pose_src"].to(dev)
+        cls = batch["class_idx"].to(dev)
+        bs = obs.shape[0]
+        ks = k_cam.to(dev).expand(bs, 3, 3).contiguous()
+        obs_mask = batch["obs_mask"].to(dev) if with_mask else None
+        obs_depth = (batch["obs_depth"].to(dev)
+                     if want_depth and "obs_depth" in batch else None)
+        gt_parts.append(batch["pose_tgt"])
+        cls_parts.append(batch["class_idx"])
+        if vis and len(vis_rows) < vis:
+            vis_rows += list(obs[:vis - len(vis_rows)].cpu().numpy())
+        if no_refine:
+            trajs.append(init[None].expand(2, *init.shape))
+        elif hypotheses > 1:
+            best, _ = refine_multi_hypothesis(
+                model, assets, obs, init, ks, cls,
+                torch.Generator(device=dev).manual_seed(17 + bi * bs),
+                num_hypotheses=hypotheses, num_iters=num_iters, out_size=out_size,
+                obs_mask=obs_mask, obs_depth=obs_depth, coarse_iters=coarse_iters,
+                coarse_size=coarse_size)
+            trajs.append(torch.stack([init, best]))
+        else:
+            trajs.append(refine_poses(
+                model, assets, obs, init, ks, cls, num_iters=num_iters, out_size=out_size,
+                return_all=True, obs_mask=obs_mask, obs_depth=obs_depth,
+                coarse_iters=coarse_iters, coarse_size=coarse_size))
+    # read back once, after the last batch: no host sync between batches
+    return {"traj": torch.cat(trajs, dim=1), "pose_gt": torch.cat(gt_parts).cpu().numpy(),
+            "class_idx": torch.cat(cls_parts).cpu().numpy(), "vis_rows": vis_rows}
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def write_vis(assets, vis_dir: str, obs: list[np.ndarray], traj: torch.Tensor,
+              pose_gt: np.ndarray, class_idx: np.ndarray, ks: np.ndarray,
+              image_size: tuple[int, int]) -> int:
+    """One montage per sample of the overlays of INIT, each iteration and
+    GT (``render_scene`` of the sample's object over its observed frame)
+    -> how many were written."""
+    from deepim_tpu_torch.refine import render_scene
+    from deepim_tpu_torch.utils.viz import overlay_render, save_image, side_by_side
+
+    dev = assets.points.device
+    os.makedirs(vis_dir, exist_ok=True)
+    nv = len(obs)
+    cls = torch.from_numpy(class_idx[:nv, None]).to(dev)
+    valid = torch.ones((nv, 1), dtype=torch.bool, device=dev)
+    k_t = torch.from_numpy(ks[:nv]).to(dev)
+    cols = []
+    for pose in list(traj[:, :nv]) + [torch.from_numpy(pose_gt[:nv]).to(dev)]:
+        rgb, depth = render_scene(assets, cls, pose[:, None], valid, k_t, image_size)
+        cols.append((rgb.cpu().numpy(), depth.cpu().numpy()))
+    for i in range(nv):
+        tiles = [overlay_render(obs[i], rgb[i], depth[i]) for rgb, depth in cols]
+        save_image(os.path.join(vis_dir, f"sample{i:03d}.png"), side_by_side(*tiles))
+    return nv
+
+
+def main(argv=None) -> int:
+    from deepim_tpu_torch.cli.train import _device, load_assets_and_names
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.eval import evaluate_poses, format_table, write_bop_csv
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.train.checkpoint import (
+        checkpoint_dir, latest_step, load_params, orbax_dir, require_port_checkpoint,
+        restore_checkpoint)
+    from deepim_tpu_torch.train.train import make_model
+
+    args = parse_args(argv)
+    cfg = update_config(args.cfg)
+    if args.seed >= 0:
+        cfg = dataclasses.replace(cfg, experiment=f"{cfg.experiment}_seed{args.seed}")
+    d, t = cfg.dataset, cfg.train
+    if (args.quant or cfg.network.quant) not in ("", "none"):
+        raise NotImplementedError(
+            f"--quant {args.quant or cfg.network.quant}: int8 inference is not ported yet "
+            "(ROADMAP A10)")
+    if d.obj_ids and len(d.obj_ids) != len(d.objects):
+        # before any batch: --save-poses maps class indices through obj_ids
+        raise SystemExit(f"dataset.obj_ids ({len(d.obj_ids)} entries) must be parallel "
+                         f"to dataset.objects ({len(d.objects)})")
+    if generated(d.name) and (args.init_poses or args.posecnn_mat):
+        raise SystemExit("--init-poses/--posecnn-mat need an on-disk dataset; got "
+                         f"dataset.name={d.name!r}, whose generated frames have no "
+                         "(scene, im, obj) ids to match")
+    if not generated(d.name):
+        raise NotImplementedError(
+            f"dataset.name={d.name!r}: the on-disk test sets (lm6d, ycb_video) wait for "
+            "their loaders (ROADMAP A13, second half)")
+    if args.init_rot_noise >= 0:
+        t = dataclasses.replace(t, rot_noise_deg=args.init_rot_noise,
+                                rot_noise_max_deg=3.0 * args.init_rot_noise)
+    if args.init_trans_noise >= 0:
+        t = dataclasses.replace(t, trans_noise=(args.init_trans_noise,) * 3,
+                                trans_noise_max=(3.0 * args.init_trans_noise,) * 3)
+    cfg = dataclasses.replace(cfg, train=t)
+    dev = _device(args.device)
+    ckpt_dir = checkpoint_dir(cfg)
+    require_port_checkpoint(ckpt_dir, orbax_dir(cfg))  # before any work
+    out_dir = os.path.join(cfg.output_dir, cfg.experiment)
+    os.makedirs(out_dir, exist_ok=True)
+
+    assets, names, symmetric = load_assets_and_names(cfg, eval_set=True, device=dev)
+    # Class-aware heads are sized by the training class set.
+    train_classes = d.zoo_size if d.name == "modelnet" else len(d.objects)
+    model = make_model(cfg, train_classes, inference=True,
+                       generator=torch.Generator().manual_seed(0)).to(dev).eval()
+    if latest_step(ckpt_dir) is not None:
+        step, params = restore_checkpoint(ckpt_dir, device=dev)
+        load_params(model, params)
+        print(f"loaded checkpoint step {step}")
+    else:
+        print("WARNING: no checkpoint found — evaluating an untrained net (identity deltas)")
+
+    image_size = (d.image_height, d.image_width)
+    n_cfg = cfg.network
+    out_size = (n_cfg.input_height, n_cfg.input_width)
+    coarse_size = (n_cfg.coarse_height, n_cfg.coarse_width) if n_cfg.coarse_height else None
+    coarse_iters = cfg.test.coarse_iters if args.coarse_iters < 0 else args.coarse_iters
+    k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
+    bs = cfg.test.batch_size
+    n = args.num_samples or max(2048, 8 * bs)
+    n = (n // bs) * bs
+
+    _sync(dev)
+    t0 = time.time()
+    out = refine_batches(
+        model, assets, eval_stream(cfg, assets, k_cam, n // bs, bs), k_cam,
+        cfg.test.test_iter, out_size, coarse_iters=coarse_iters, coarse_size=coarse_size,
+        hypotheses=args.hypotheses, no_refine=args.no_refine,
+        want_depth=bool(n_cfg.input_depth) or args.hypotheses > 1,
+        with_mask=bool(n_cfg.input_mask), vis=args.vis)
+    traj = out["traj"]
+    _sync(dev)
+    dt = time.time() - t0
+    print(f"refined {n} hypotheses x {cfg.test.test_iter} iters in {dt:.2f}s "
+          f"({n / dt:.1f} poses/s on {dev}, synthesis included)")
+
+    pose_gt, class_idx = out["pose_gt"], out["class_idx"]
+    ks = np.tile(k_cam.cpu().numpy()[None], (n, 1, 1))
+    traj_np = traj.cpu().numpy()
+    t1 = time.time()
+    results = None
+    for it in range(traj_np.shape[0]):  # per-iteration rows, as the reference's pred_eval
+        results = evaluate_poses(assets, names, symmetric, traj_np[it], pose_gt, class_idx, ks)
+        label = "INIT" if it == 0 else f"iter {it}"
+        print(f"[{label}] ADD(-S)@0.1d={results['mean']['add(-s)_0.1d']:.2f} "
+              f"5d5cm={results['mean']['5deg_5cm']:.2f} "
+              f"proj2d={results['mean']['proj2d_5px']:.2f}")
+    print(f"evaluated {traj_np.shape[0]} x {n} poses in {time.time() - t1:.2f}s")
+    iters = "INIT (unrefined)" if args.no_refine else f"{cfg.test.test_iter} refine iters"
+    print(format_table(results, f"{cfg.experiment} — {iters}"))
+
+    if args.vis:
+        vis_dir = os.path.join(out_dir, "vis")
+        nv = write_vis(assets, vis_dir, out["vis_rows"][:min(args.vis, n)], traj, pose_gt,
+                       class_idx, ks, image_size)
+        print(f"wrote {nv} overlay montages (INIT, {traj.shape[0] - 1} iters, GT) to {vis_dir}")
+    with open(os.path.join(out_dir, "eval_results.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    if args.results_out:
+        from deepim_tpu_torch.utils.results import record_result
+
+        record_result(args.results_out, results, experiment=cfg.experiment, argv=argv)
+
+    if args.save_poses:
+        path = os.path.join(out_dir, "refined_poses.npz")
+        np.savez_compressed(path, traj=traj_np, pose_gt=pose_gt, class_idx=class_idx, k=ks)
+        print(f"wrote pose trajectories to {path}")
+        if d.obj_ids:
+            oid_map = np.asarray(list(d.obj_ids), np.int64)
+            if int(class_idx.max(initial=0)) >= len(oid_map):
+                raise SystemExit(f"class index {int(class_idx.max(initial=0))} is out of "
+                                 f"range for dataset.obj_ids ({len(oid_map)} entries)")
+            obj_col = oid_map[class_idx]
+        else:
+            obj_col = class_idx + 1
+        print("WARNING: generated data has no scene/frame ids; the BOP CSV gets "
+              "placeholder scene_id=0 / im_id=row ids")
+        csv_path = os.path.join(out_dir, "bop_results.csv")
+        write_bop_csv(csv_path, traj_np[-1], obj_col, time_s=float(dt) / max(n, 1))
+        print(f"wrote BOP results CSV to {csv_path}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,13 +1,19 @@
-"""Pose sampling and on-device pair synthesis (torch).
+"""Pose sampling, on-device pair synthesis, image IO and the video toolkit.
 
 Port of ``deepim_tpu/data/pairs.py`` (``sample_poses_in_frustum``,
-``perturb_poses``) and ``deepim_tpu/data/synthetic.py``
-(``random_lighting``, ``synthetic_batch``, ``synthetic_occlusion_batch``).
+``perturb_poses``), ``deepim_tpu/data/synthetic.py`` (``random_lighting``,
+``synthetic_batch``, ``synthetic_occlusion_batch``), the layout and
+writers of ``deepim_tpu/data/lm6d.py`` and ``deepim_tpu/data/video.py``
+(``VideoDataset``, ``gen_video``), with the port's own PNG codec
+(``png.py``).
 """
 
+from deepim_tpu_torch.data.lm6d import DEPTH_FACTOR, FrameRecord, LM6DDataset
 from deepim_tpu_torch.data.pairs import perturb_poses, sample_poses_in_frustum
+from deepim_tpu_torch.data.png import decode_png, encode_png, read_png, write_png
 from deepim_tpu_torch.data.synthetic import (
     random_lighting,
     synthetic_batch,
     synthetic_occlusion_batch,
 )
+from deepim_tpu_torch.data.video import VideoDataset, gen_video, read_manifest, video_manifest

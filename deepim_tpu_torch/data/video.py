@@ -1,0 +1,325 @@
+"""Video pose-tracking datasets: the sequence layout and its generator.
+
+Port of ``deepim_tpu/data/video.py``: ``VideoDataset`` (``sequences``,
+``frame_ids``, ``objects_in``, ``init_poses``, ``load_sequence``,
+``write_sequence``), ``gen_video`` and ``_render_frame``.  The layout
+extends the LM6d one with ordered sequences and per-frame multi-object
+poses:
+
+    {root}/models/{obj}/textured.ply
+    {root}/data/video/{seq}/{frame}-color.png / -depth.png / -label.png
+    {root}/data/video/{seq}/{frame}-pose_{obj}.txt
+    {root}/video_sets/{seq}.txt          # ordered frame ids, one per line
+    {root}/video_sets/{seq}_objects.txt  # object names present in the seq
+    {root}/init_poses/video_{seq}.txt    # (M, 3, 4) frame-0 inits
+    {root}/gen_params.json               # gen_video's manifest
+
+Label pixels are 1 + the object's slot in the sequence's object list (0:
+background).  Each package reads the other's sequences.
+
+Two differences from the reference.  ``gen_video`` draws from
+``torch.Generator``s (the trajectories never equal the reference's, whose
+JAX streams no torch generator reproduces) and writes a manifest of its
+parameters, ``gen_params.json``, last, so a reader can tell whether a
+directory holds what it asks for (:func:`video_manifest`,
+:func:`read_manifest`).  ``_render_frame`` has one path: the scene render
+and one batched depth render of the objects for the label, the kernels on
+the card and their plain versions on the CPU.
+
+The keyframe protocol (``keyframes``, ``keyframe_records``,
+``iter_keyframe_batches``, ``apply_posecnn_mat_init``) and
+``convert_ycb_original`` read recorded YCB data and are not ported yet
+(ROADMAP A13, second half).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from deepim_tpu_torch.data.lm6d import DEPTH_FACTOR, LM6DDataset
+from deepim_tpu_torch.data.png import write_png
+
+MANIFEST = "gen_params.json"
+
+
+class VideoDataset:
+    """Reader and writer of the sequence layout above."""
+
+    def __init__(self, root: str, objects: list[str]):
+        self.root = root
+        self.objects = list(objects)
+        self.class_to_idx = {o: i for i, o in enumerate(self.objects)}
+        self._frames = LM6DDataset(root, objects)  # models and image IO
+
+    def _vid(self, seq: str, frame: str, suffix: str) -> str:
+        return os.path.join(self.root, "data", "video", seq, f"{frame}-{suffix}")
+
+    def sequences(self) -> list[str]:
+        d = os.path.join(self.root, "video_sets")
+        # keyframe.txt is an eval frame list, not a sequence
+        return sorted(f[:-4] for f in os.listdir(d)
+                      if f.endswith(".txt") and not f.endswith("_objects.txt")
+                      and f != "keyframe.txt")
+
+    def frame_ids(self, seq: str) -> list[str]:
+        with open(os.path.join(self.root, "video_sets", f"{seq}.txt")) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+
+    def objects_in(self, seq: str) -> list[str]:
+        with open(os.path.join(self.root, "video_sets", f"{seq}_objects.txt")) as f:
+            return [ln.strip() for ln in f if ln.strip()]
+
+    def init_poses(self, seq: str) -> np.ndarray | None:
+        path = os.path.join(self.root, "init_poses", f"video_{seq}.txt")
+        if not os.path.exists(path):
+            return None
+        return np.loadtxt(path, dtype=np.float32).reshape(-1, 3, 4)
+
+    def load_sequence(self, seq: str, with_depths: bool = True, with_labels: bool = True,
+                      start: int = 0, count: int | None = None) -> dict:
+        """-> frames (T, H, W, 3) float32 in [0, 1], depths (T, H, W) metric
+        (or None), labels (T, H, W) uint8 (or None), poses (T, M, 3, 4),
+        class_idx (M,) and the object names.
+
+        ``with_depths``/``with_labels`` False skip decoding that stream (it
+        loads as None, as does a stream missing from disk); ``start`` and
+        ``count`` load a window of frames, so a long sequence streams.
+        """
+        objs = self.objects_in(seq)
+        fids = self.frame_ids(seq)
+        fids = fids[start:start + count] if count is not None else fids[start:]
+        read = self._frames._read_image
+        frames, depths, labels, poses = [], [], [], []
+        for fid in fids:
+            frames.append(read(self._vid(seq, fid, "color.png")).astype(np.float32) / 255.0)
+            dpath = self._vid(seq, fid, "depth.png")
+            if with_depths and os.path.exists(dpath):
+                depths.append(read(dpath).astype(np.float32) / DEPTH_FACTOR)
+            lpath = self._vid(seq, fid, "label.png")
+            if with_labels and os.path.exists(lpath):
+                labels.append(read(lpath))
+            poses.append(np.stack([
+                np.loadtxt(self._vid(seq, fid, f"pose_{o}.txt"), dtype=np.float32).reshape(3, 4)
+                for o in objs]))
+        return {
+            "frames": np.stack(frames),
+            "depths": np.stack(depths) if len(depths) == len(fids) else None,
+            "labels": np.stack(labels) if len(labels) == len(fids) else None,
+            "poses": np.stack(poses),
+            "class_idx": np.asarray([self.class_to_idx[o] for o in objs], np.int32),
+            "objects": objs,
+        }
+
+    def write_sequence(self, seq: str, frame_ids: list[str], objs: list[str],
+                       rgbs: np.ndarray, depths: np.ndarray, poses: np.ndarray,
+                       init_poses: np.ndarray, labels: np.ndarray | None = None) -> None:
+        """Write one sequence: RGB in [0, 1] (T, H, W, 3), metric depths (T,
+        H, W), GT poses (T, M, 3, 4), frame-0 inits (M, 3, 4), optional
+        labels (T, H, W)."""
+        os.makedirs(os.path.join(self.root, "data", "video", seq), exist_ok=True)
+        os.makedirs(os.path.join(self.root, "video_sets"), exist_ok=True)
+        os.makedirs(os.path.join(self.root, "init_poses"), exist_ok=True)
+        for t, fid in enumerate(frame_ids):
+            write_png(self._vid(seq, fid, "color.png"),
+                      np.clip(rgbs[t] * 255, 0, 255).astype(np.uint8))
+            write_png(self._vid(seq, fid, "depth.png"),
+                      (depths[t] * DEPTH_FACTOR).astype(np.uint16))
+            if labels is not None:
+                write_png(self._vid(seq, fid, "label.png"), labels[t].astype(np.uint8))
+            for m, o in enumerate(objs):
+                np.savetxt(self._vid(seq, fid, f"pose_{o}.txt"), poses[t, m])
+        with open(os.path.join(self.root, "video_sets", f"{seq}.txt"), "w") as f:
+            f.write("\n".join(frame_ids) + "\n")
+        with open(os.path.join(self.root, "video_sets", f"{seq}_objects.txt"), "w") as f:
+            f.write("\n".join(objs) + "\n")
+        np.savetxt(os.path.join(self.root, "init_poses", f"video_{seq}.txt"),
+                   init_poses.reshape(-1, 12))
+
+
+def video_manifest(objects: list[str], k: np.ndarray, image_size: tuple[int, int],
+                   num_frames: int, num_sequences: int = 1, seed: int = 0,
+                   objects_per_sequence: int | None = None, occluders: int = 0) -> dict:
+    """What :func:`gen_video` writes to ``gen_params.json`` for these
+    parameters, as it reads back from JSON."""
+    return {
+        "image_size": [int(image_size[0]), int(image_size[1])],
+        "k": np.asarray(k, np.float32).astype(float).tolist(),
+        "objects": list(objects),
+        "num_frames": int(num_frames),
+        "objects_per_sequence": objects_per_sequence,
+        "occluders": int(occluders),
+        "seed": int(seed),
+        "num_sequences": int(num_sequences),
+    }
+
+
+def read_manifest(root: str) -> dict | None:
+    """The manifest of a generated dataset, or None when it has none (not
+    generated here, or its generation did not finish)."""
+    path = os.path.join(root, MANIFEST)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)
+
+
+def _trajectory(start: torch.Tensor, end: torch.Tensor, num_frames: int) -> torch.Tensor:
+    """(T, M, 3, 4): rotations slerped and translations lerped from
+    ``start`` to ``end`` (M, 3, 4)."""
+    from deepim_tpu_torch.geometry.rotations import mat2quat, quat2mat, quat_slerp
+
+    q0, q1 = mat2quat(start[..., :3]), mat2quat(end[..., :3])
+    poses = []
+    for t in torch.linspace(0.0, 1.0, num_frames).tolist():
+        q = quat_slerp(q0, q1, torch.full((start.shape[0],), t, device=start.device))
+        tr = (1 - t) * start[..., 3] + t * end[..., 3]
+        poses.append(torch.cat([quat2mat(q), tr[..., None]], -1))
+    return torch.stack(poses)
+
+
+def _occluder_poses(generator: torch.Generator, n_occ: int, k: np.ndarray,
+                    image_size: tuple[int, int], num_frames: int) -> torch.Tensor:
+    """(T, n_occ, 3, 4): boxes sweeping straight across the frustum in
+    front of the tracked objects, over the middle of the clip."""
+    from deepim_tpu_torch.geometry.rotations import euler2mat
+
+    dev = generator.device
+    z = 0.42 + 0.18 * torch.rand((n_occ,), generator=generator, device=dev)
+    y = -0.06 + 0.12 * torch.rand((n_occ,), generator=generator, device=dev)
+    ang = -1.5 + 3.0 * torch.rand((n_occ, 3), generator=generator, device=dev)
+    r = euler2mat(ang[:, 0], ang[:, 1], ang[:, 2])
+    half_w = 0.55 * image_size[1] / float(k[0, 0])  # ~ the frustum's half width
+    sweep = torch.linspace(-half_w, half_w, num_frames).tolist()
+    offs = torch.arange(n_occ, device=dev, dtype=torch.float32) * 0.08
+    return torch.stack([
+        torch.cat([r, torch.stack([(s + offs) * z, y, z], -1)[..., None]], -1)
+        for s in sweep])
+
+
+def gen_video(root: str, meshes: dict, k: np.ndarray, image_size: tuple[int, int],
+              num_frames: int = 10, num_sequences: int = 1, seed: int = 0,
+              objects_per_sequence: int | None = None, occluders: int = 0,
+              device: torch.device | str = "cuda") -> VideoDataset:
+    """Generate smooth-trajectory sequences rendered on ``device`` and write
+    them under ``root`` -> the dataset.
+
+    Frames match the training observations: a random light and a noise
+    background.  ``objects_per_sequence`` splits the objects into groups,
+    one sequence each (1: single-object sequences, the LM6d-style
+    protocol; None: every object in every frame, YCB-style).
+    ``occluders`` untracked boxes sweep across the frustum in front of the
+    tracked objects; their pixels overwrite RGB and depth and zero the
+    label, and leave the GT poses alone.
+
+    Sequence ``s`` draws from one generator seeded ``seed + 101*s + 7``, in
+    the reference's split order: start poses, end perturbation, init
+    noise, lighting, then the occluders' poses and a background a frame.
+    The occluder boxes' sizes come from ``np.random.RandomState(seed +
+    91)``, as the reference's do.  ``gen_params.json``
+    (:func:`video_manifest`) is written last.  Prints the render and PNG
+    write ms a frame.
+    """
+    from deepim_tpu_torch.data.pairs import perturb_poses, sample_poses_in_frustum
+    from deepim_tpu_torch.data.synthetic import random_lighting
+    from deepim_tpu_torch.raster.mesh import box_mesh
+    from deepim_tpu_torch.refine.refiner import build_assets, render_scene
+
+    device = torch.device(device)
+    objects = list(meshes)
+    ds = VideoDataset(root, objects)
+    for o in objects:
+        ds._frames.write_model(o, meshes[o])
+    assets = build_assets([meshes[o] for o in objects], num_points=256, device=device)
+    kt = torch.as_tensor(np.asarray(k, np.float32), device=device)
+
+    occ_assets = None
+    if occluders:
+        rng = np.random.RandomState(seed + 91)
+        occ_assets = build_assets([box_mesh(tuple(rng.uniform(0.06, 0.14, 3)))
+                                   for _ in range(occluders)], num_points=8, device=device)
+        occ_cls = torch.arange(occluders, device=device)[None]
+        occ_valid = torch.ones((1, occluders), dtype=torch.bool, device=device)
+
+    group = objects_per_sequence or len(objects)
+    groups = [list(range(g, min(g + group, len(objects))))
+              for g in range(0, len(objects), group)]
+    render_s = write_s = 0.0
+    seq_id = 0
+    for _ in range(num_sequences):
+        for members in groups:
+            t0 = time.perf_counter()
+            m = len(members)
+            g = torch.Generator(device=device).manual_seed(seed + 101 * seq_id + 7)
+            start = sample_poses_in_frustum(g, m, kt, image_size, z_range=(0.7, 1.1))
+            end = perturb_poses(g, start, rot_std_deg=25.0, rot_max_deg=60.0,
+                                trans_std=(0.08, 0.08, 0.1), trans_max=(0.15, 0.15, 0.2))
+            poses = _trajectory(start, end, num_frames)  # (T, M, 3, 4)
+            inits = perturb_poses(g, poses[0], rot_std_deg=10.0, rot_max_deg=30.0,
+                                  trans_std=(0.01, 0.01, 0.03), trans_max=(0.03, 0.03, 0.08))
+            light = random_lighting(g)
+            occ_poses = (_occluder_poses(g, occluders, k, image_size, num_frames)
+                         if occluders else None)
+            cls = torch.tensor(members, dtype=torch.int32, device=device)
+            rgbs, depths, labels = [], [], []
+            for t in range(num_frames):
+                rgb, dep, lab = _render_frame(assets, cls, poses[t], kt, image_size, light)
+                if occ_poses is not None:
+                    orgb, odep = render_scene(occ_assets, occ_cls, occ_poses[t][None],
+                                              occ_valid, kt[None], image_size, lighting=light)
+                    orgb, odep = orgb[0], odep[0]
+                    front = (odep > 0) & ((dep == 0) | (odep < dep))
+                    rgb = torch.where(front[..., None], orgb, rgb)
+                    dep = torch.where(front, odep, dep)
+                    lab = torch.where(front, 0, lab)
+                bg = torch.rand(rgb.shape, generator=g, device=device)
+                rgb = torch.where((dep > 0)[..., None], rgb, bg)
+                rgbs.append(rgb.cpu().numpy())
+                depths.append(dep.cpu().numpy())
+                labels.append(lab.cpu().numpy())
+            t1 = time.perf_counter()
+            ds.write_sequence(f"{seq_id:04d}", [f"{t:06d}" for t in range(num_frames)],
+                              [objects[i] for i in members], np.stack(rgbs), np.stack(depths),
+                              poses.cpu().numpy(), inits.cpu().numpy(), labels=np.stack(labels))
+            render_s += t1 - t0
+            write_s += time.perf_counter() - t1
+            seq_id += 1
+    manifest = video_manifest(objects, k, image_size, num_frames, num_sequences, seed,
+                              objects_per_sequence, occluders)
+    with open(os.path.join(root, MANIFEST), "w") as f:
+        json.dump(manifest, f, indent=2)
+    n = max(seq_id * num_frames, 1)
+    print(f"gen_video: {seq_id * num_frames} frames at {image_size[0]}x{image_size[1]} on "
+          f"{device}: render {render_s / n * 1e3:.2f} ms a frame, PNG write "
+          f"{write_s / n * 1e3:.2f} ms a frame")
+    return ds
+
+
+def _render_frame(assets, cls: torch.Tensor, poses: torch.Tensor, k: torch.Tensor,
+                  image_size: tuple[int, int], lighting=None):
+    """One frame of M objects -> rgb (H, W, 3), depth (H, W), label (H, W).
+
+    ``cls`` (M,), ``poses`` (M, 3, 4), ``k`` (3, 3).  RGB and depth are
+    the shared-z-buffer scene render; the scene raster does not expose the
+    winning object, so the label (1 + the object's slot, 0 background)
+    comes from one depth render of each object alone, all M in one batch,
+    with the same z-test: the reference's non-"xla" branch.
+    """
+    from deepim_tpu_torch.raster.raster_ref import FLAT_LIGHTING
+    from deepim_tpu_torch.refine.refiner import gather_class, render_crops, render_scene
+
+    lighting = FLAT_LIGHTING if lighting is None else lighting
+    m = cls.shape[0]
+    valid = torch.ones((1, m), dtype=torch.bool, device=poses.device)
+    rgb, depth = render_scene(assets, cls[None], poses[None], valid, k[None], image_size,
+                              lighting=lighting)
+    _, deps = render_crops(gather_class(assets, cls), poses, k.expand(m, 3, 3).contiguous(),
+                           image_size, lighting=lighting)
+    big = torch.where(deps > 0, deps, torch.inf)
+    hit = (deps > 0).any(0)
+    label = torch.where(hit, big.argmin(0).to(torch.int32) + 1, 0)
+    return rgb[0], depth[0], label

@@ -11,6 +11,7 @@ from deepim_tpu_torch.geometry.rotations import (
     mat2quat,
     quat2mat,
     quat_normalize,
+    quat_slerp,
     random_quat,
     rotation_angle,
 )

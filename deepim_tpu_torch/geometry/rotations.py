@@ -2,7 +2,7 @@
 
 Port of ``deepim_tpu/geometry/rotations.py`` (``quat_normalize``,
 ``quat2mat``, ``mat2quat``, ``euler2mat``, ``euler2quat``, ``random_quat``,
-``rotation_angle``).
+``quat_slerp``, ``rotation_angle``).
 
 Conventions: quaternions are ``(w, x, y, z)``, scalar-first; euler angles are
 static ``sxyz`` (``R = Rz(az) @ Ry(ay) @ Rx(ax)``).  Every function maps
@@ -100,3 +100,26 @@ def rotation_angle(m: torch.Tensor) -> torch.Tensor:
     """Geodesic rotation angle (radians) of rotation matrix(es) (..., 3, 3)."""
     tr = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
     return torch.arccos(((tr - 1.0) * 0.5).clamp(-1.0, 1.0))
+
+
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Spherical interpolation between unit quaternions (..., 4) at
+    ``t`` in [0, 1] (...,).
+
+    Shortest path (``q1`` flips sign when the two point apart); where
+    ``sin θ <= 1e-5`` the quaternions are nearly parallel and it lerps
+    instead, branch-free through ``torch.where``.  ``gen_video`` draws its
+    trajectories with it.
+    """
+    q0 = quat_normalize(q0)
+    q1 = quat_normalize(q1)
+    dot = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = dot.abs().clamp(-1.0, 1.0)
+    theta = torch.arccos(dot)
+    sin_theta = torch.sin(theta)
+    safe = sin_theta > 1e-5
+    t = t[..., None] if t.dim() < dot.dim() else t
+    w0 = torch.where(safe, torch.sin((1 - t) * theta) / sin_theta.clamp_min(1e-9), 1 - t)
+    w1 = torch.where(safe, torch.sin(t * theta) / sin_theta.clamp_min(1e-9), t)
+    return quat_normalize(w0 * q0 + w1 * q1)

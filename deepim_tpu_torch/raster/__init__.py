@@ -2,8 +2,8 @@
 
 Port of ``deepim_tpu/raster``:
 
-- :mod:`~deepim_tpu_torch.raster.mesh` — numpy mesh containers, builders
-  and texture helpers.
+- :mod:`~deepim_tpu_torch.raster.mesh` — numpy mesh containers, builders,
+  texture helpers and PLY IO.
 - :mod:`~deepim_tpu_torch.raster.camera` — intrinsics bookkeeping.
 - :mod:`~deepim_tpu_torch.raster.raster_ref` — lighting and the
   brute-force oracle renderer.
@@ -16,9 +16,11 @@ Port of ``deepim_tpu/raster``:
 from deepim_tpu_torch.raster.mesh import (
     Mesh,
     bake_texture_to_vertices,
+    load_ply,
     make_mesh,
     planar_uv,
     procedural_texture,
+    save_ply,
     texturize,
 )
 from deepim_tpu_torch.raster.raster_cuda import (

@@ -10,7 +10,9 @@ builder (``box_mesh``, ``icosphere_mesh``, ``cylinder_mesh``,
 ``PROCEDURAL_MESHES``, ``ZOO_FAMILIES`` and ``random_mesh_zoo``,
 ``pad_mesh``, ``decimate_mesh``, ``sample_points`` and ``cull_direction``,
 and the texture helpers ``procedural_texture``, ``planar_uv``,
-``texturize`` and ``bake_texture_to_vertices``.  The PLY/OBJ/OFF loaders
+``texturize`` and ``bake_texture_to_vertices``; and the PLY reader's
+Python path with the writer (``load_ply``, ``save_ply``), its texture
+image read through :mod:`deepim_tpu_torch.data.png`.  The OBJ/OFF loaders
 are not copied yet.
 
 A copy and not an import: ``deepim_tpu/raster/__init__.py`` imports jax.
@@ -22,6 +24,7 @@ bit-identical to the reference.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -868,3 +871,157 @@ def random_mesh_zoo(n: int, seed: int = 0,
             m = texturize(m, seed * 100003 + i)
         zoo[name] = m
     return zoo
+
+
+# ---------------------------------------------------------------------------
+# PLY IO (``deepim_tpu/raster/mesh.py §_sniff_texture, §load_ply, §save_ply``).
+# The reference parses with its native C++ helper where it is built; this
+# is its Python path, the helper's oracle.
+# ---------------------------------------------------------------------------
+
+_PLY_TYPES = {
+    "float": "f4", "float32": "f4", "double": "f8", "float64": "f8",
+    "uchar": "u1", "uint8": "u1", "char": "i1", "int8": "i1",
+    "ushort": "u2", "uint16": "u2", "short": "i2", "int16": "i2",
+    "uint": "u4", "uint32": "u4", "int": "i4", "int32": "i4",
+}
+
+
+def _sniff_texture(path: str) -> str | None:
+    """Header peek: per-vertex UVs and 'comment TextureFile <f>' -> the
+    texture's path (YCB textured.ply style), else None."""
+    tex_file = None
+    has_uv = False
+    with open(path, "rb") as f:
+        for _ in range(100):
+            line = f.readline().decode("ascii", "replace").strip()
+            if line.startswith("comment TextureFile"):
+                tex_file = line.split()[-1]
+            if line.startswith("property") and line.split()[-1] in ("texture_u", "s", "u"):
+                has_uv = True  # the property's name, not a suffix of the line
+            if line == "end_header" or not line:
+                break
+    if has_uv and tex_file:
+        cand = os.path.join(os.path.dirname(path), tex_file)
+        if os.path.exists(cand):
+            return cand
+    return None
+
+
+def _read_ply_elements(f, fmt: str, elements) -> dict:
+    data = {}
+    if fmt == "ascii":
+        for name, count, props in elements:
+            data[name] = ([f.readline().decode("ascii").split() for _ in range(count)], props)
+        return data
+    if fmt != "binary_little_endian":
+        raise ValueError(f"unsupported PLY format: {fmt}")
+    for name, count, props in elements:
+        if all(p[0] == "scalar" for p in props):
+            dt = np.dtype([(p[2], "<" + _PLY_TYPES[p[1]]) for p in props])
+            data[name] = (np.frombuffer(f.read(dt.itemsize * count), dtype=dt), props)
+            continue
+        rows = []  # list properties (faces): row by row
+        for _ in range(count):
+            row = []
+            for p in props:
+                if p[0] == "list":
+                    cnt_t = np.dtype("<" + _PLY_TYPES[p[1]])
+                    idx_t = np.dtype("<" + _PLY_TYPES[p[2]])
+                    n = int(np.frombuffer(f.read(cnt_t.itemsize), cnt_t)[0])
+                    row.append(np.frombuffer(f.read(idx_t.itemsize * n), idx_t))
+                else:
+                    st = np.dtype("<" + _PLY_TYPES[p[1]])
+                    row.append(np.frombuffer(f.read(st.itemsize), st)[0])
+            rows.append(row)
+        data[name] = (rows, props)
+    return data
+
+
+def load_ply(path: str) -> Mesh:
+    """PLY reader: xyz (+ rgb) and faces, ascii or binary little endian.
+
+    Covers the LM6d ``models/<obj>/textured.ply`` vertex-coloured meshes;
+    polygons are fan-triangulated.  A textured PLY (per-vertex UVs and a
+    ``comment TextureFile`` naming a PNG) bakes its texture to the vertex
+    colours and keeps uv and texture on the mesh.
+    """
+    textured = _sniff_texture(path)
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline().decode("ascii").strip()
+            header.append(line)
+            if line == "end_header":
+                break
+        fmt = next(ln.split()[1] for ln in header if ln.startswith("format"))
+        elements = []  # (name, count, [(kind, types..., prop)])
+        for line in header:
+            parts = line.split()
+            if parts and parts[0] == "element":
+                elements.append((parts[1], int(parts[2]), []))
+            elif parts and parts[0] == "property":
+                if parts[1] == "list":
+                    elements[-1][2].append(("list", parts[2], parts[3], parts[4]))
+                else:
+                    elements[-1][2].append(("scalar", parts[1], parts[2]))
+        data = _read_ply_elements(f, fmt, elements)
+
+    vrows, vprops = data["vertex"]
+    names = [p[2] for p in vprops if p[0] == "scalar"]
+    if isinstance(vrows, np.ndarray):
+        def get(n):
+            return vrows[n].astype(np.float32)
+    else:
+        cols_arr = np.asarray(vrows, np.float64)
+
+        def get(n):
+            return cols_arr[:, names.index(n)].astype(np.float32)
+    vertices = np.stack([get("x"), get("y"), get("z")], -1)
+    if "red" in names:
+        colors = np.stack([get("red"), get("green"), get("blue")], -1) / 255.0
+    else:
+        colors = np.full_like(vertices, 0.7)
+    uv_names = ("texture_u", "texture_v") if "texture_u" in names else (
+        ("s", "t") if "s" in names and "t" in names else None)
+    uv = texture = None
+    if textured is not None and uv_names is not None:
+        from deepim_tpu_torch.data.png import read_png
+
+        uv = np.stack([get(uv_names[0]), get(uv_names[1])], -1)
+        tex_img = read_png(textured)
+        if tex_img.ndim != 3:
+            raise ValueError(f"{textured}: a texture must be an RGB image")
+        colors = bake_texture_to_vertices(uv, tex_img)
+        texture = tex_img[..., :3].astype(np.float32) / 255.0
+
+    tris = []
+    for row in data.get("face", ([], []))[0]:
+        if isinstance(row[0], str):  # ascii: ["3", "0", "1", "2", ...]
+            idx = np.asarray(row[1: 1 + int(row[0])], np.int64)
+        else:  # binary: the first entry is the parsed index array
+            idx = np.asarray(row[0], np.int64)
+        for k in range(1, len(idx) - 1):
+            tris.append((idx[0], idx[k], idx[k + 1]))
+    faces = np.asarray(tris, np.int32).reshape(-1, 3)
+    m = make_mesh(vertices, faces, colors)
+    if uv is not None:
+        m = Mesh(m.vertices, m.faces, m.colors, m.normals, uv=uv.astype(np.float32),
+                 texture=texture)
+    return m
+
+
+def save_ply(path: str, mesh: Mesh) -> None:
+    """ASCII PLY writer: xyz, 8-bit rgb, triangles (``load_ply`` reads it)."""
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {mesh.num_vertices}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write(f"element face {mesh.num_faces}\n")
+        f.write("property list uchar int vertex_indices\nend_header\n")
+        for v, c in zip(mesh.vertices, mesh.colors):
+            r, g, b = (int(np.clip(x * 255, 0, 255)) for x in c)
+            f.write(f"{v[0]} {v[1]} {v[2]} {r} {g} {b}\n")
+        for face in mesh.faces:
+            f.write(f"3 {face[0]} {face[1]} {face[2]}\n")

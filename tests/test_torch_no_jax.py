@@ -1,11 +1,12 @@
-"""deepim_tpu_torch runs without jax, orbax, PyYAML or the reference package.
+"""deepim_tpu_torch runs without jax, orbax, PyYAML, PIL or the reference package.
 
-The machine with the card has no jax, so the port must import, refine,
-serve and train (the losses, the flow GT, the optimizer, one fused
-synthetic step, a checkpoint round trip) with jax, optax, orbax and
-PyYAML blocked, no source file of the
-port may import jax, flax, orbax or the reference, and none may import
-yaml when it is imported.
+The machine with the card has no jax and no PIL, so the port must import,
+refine, serve, train (the losses, the flow GT, the optimizer, one fused
+synthetic step, a checkpoint round trip), evaluate (the evaluator, PNG
+and BOP files, the eval loop) and generate and read video sequences with
+jax, optax, orbax, PyYAML and PIL blocked; no source file of the port may
+import jax, flax, orbax, PIL or the reference, and none may import yaml
+when it is imported.
 """
 
 import os
@@ -19,7 +20,7 @@ PKG = ROOT / "deepim_tpu_torch"
 
 _PROBE = r"""
 import sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "deepim_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "deepim_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -71,7 +72,7 @@ try:
 finally:
     svc.close()
 assert served.shape == (1, 3, 4) and np.isfinite(served).all()
-assert {"config", "cli", "train", "serve", "losses"} <= {m.split(".")[1] for m in mods}
+assert {"config", "cli", "train", "serve", "losses", "eval", "utils"} <= {m.split(".")[1] for m in mods}
 assert "deepim_tpu_torch.ops.flow_gt" in mods
 import tempfile
 from deepim_tpu_torch.train import (checkpoint as ckpt, init_state, make_model,
@@ -90,6 +91,26 @@ assert state.step == 1 and {"flow_loss_1", "mask_loss_1", "grad_norm"} <= set(me
 with tempfile.TemporaryDirectory() as d:
     ckpt.save_train_state(d, state)
     assert ckpt.restore_train_state(d, init_state(cfg, make_model(cfg, 2))).step == 1
+from deepim_tpu_torch.cli.test import refine_batches
+from deepim_tpu_torch.data import gen_video, read_png, write_png
+from deepim_tpu_torch.eval import evaluate_poses, format_table, read_bop_csv, write_bop_csv
+from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+with tempfile.TemporaryDirectory() as d:
+    ev_assets = build_assets([box_mesh(), icosphere_mesh(0.05)], num_points=16, device="cpu")
+    out = refine_batches(model, ev_assets, [batch], k, num_iters=1, out_size=(32, 64))
+    traj = out["traj"].numpy()
+    ks_np = np.broadcast_to(k.numpy(), (2, 3, 3)).copy()
+    res = evaluate_poses(ev_assets, ["box", "icosphere"], [False, False], traj[-1],
+                         out["pose_gt"], out["class_idx"], ks_np)
+    assert "MEAN" in format_table(res) and res["num_samples"] == 2
+    write_bop_csv(d + "/b.csv", traj[-1], out["class_idx"] + 1)
+    assert np.allclose(read_bop_csv(d + "/b.csv")["poses"], traj[-1], atol=1e-6)
+    img = (np.random.rand(5, 7, 3) * 255).astype(np.uint8)
+    write_png(d + "/a.png", img)
+    assert (read_png(d + "/a.png") == img).all()
+    ds = gen_video(d + "/v", {"box": PROCEDURAL_MESHES["box"]()}, k.numpy(), (32, 48),
+                   num_frames=2, device="cpu")
+    assert ds.load_sequence("0000")["frames"].shape == (2, 32, 48, 3)
 try:
     from deepim_tpu_torch.config import update_config
     update_config("experiments/cfgs/synthetic_all.yaml")
@@ -112,8 +133,8 @@ def test_imports_and_refines_with_jax_blocked():
 
 
 def test_no_source_imports_jax_or_the_reference():
-    bad = re.compile(r"^\s*(import\s+(jax|flax|optax|orbax|deepim_tpu)\b(?!_torch)"
-                     r"|from\s+(jax|flax|optax|orbax|deepim_tpu)(\.|\s)(?!_torch))", re.M)
+    bad = re.compile(r"^\s*(import\s+(jax|flax|optax|orbax|PIL|deepim_tpu)\b(?!_torch)"
+                     r"|from\s+(jax|flax|optax|orbax|PIL|deepim_tpu)(\.|\s)(?!_torch))", re.M)
     # yaml only inside a function: the card's machine may not have it
     top_level_yaml = re.compile(r"^(import\s+yaml|from\s+yaml\s)", re.M)
     files = sorted(PKG.rglob("*.py"))

@@ -1,0 +1,157 @@
+"""deepim_tpu_torch.data.png and utils.viz against PIL and deepim_tpu.utils (CPU).
+
+- PNGs the port writes (8-bit RGB, 8-bit grey, 16-bit grey) read back by
+  PIL equal the arrays written, and the port reads its own.
+- PNGs PIL writes, of a noisy gradient that makes PIL filter rows with
+  Sub, Up and Paeth, decode equal in the port.  PIL never picks the
+  Average filter, so a small encoder here writes rows with each of the
+  five filters; PIL and the port read them alike.
+- The viz helpers equal the reference's, and ``save_image`` writes what
+  PIL reads back.
+"""
+
+import io
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from deepim_tpu.utils import viz as viz_j
+from deepim_tpu_torch.data import png
+from deepim_tpu_torch.utils import viz as viz_t
+
+
+def _images(seed=0, h=24, w=32):
+    """A noisy gradient as 8-bit RGB, 8-bit grey and 16-bit grey."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgb = np.clip(np.stack([xx * 5, yy * 6, (xx + yy) * 2], -1) + rng.randint(0, 40, (h, w, 3)),
+                  0, 255).astype(np.uint8)
+    return {"rgb8": rgb, "grey8": rgb[..., 1].copy(),
+            "grey16": (rgb[..., 0].astype(np.uint16) * 250 + rng.randint(0, 200, (h, w))
+                       ).astype(np.uint16)}
+
+
+def _filters(data: bytes) -> set[int]:
+    """The row filter types of a non-interlaced PNG."""
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        hdr = struct.unpack(">IIBBBBB", body) if kind == b"IHDR" else hdr
+        idat += body if kind == b"IDAT" else b""
+    w, h, depth, colour = hdr[:4]
+    row = w * {0: 1, 2: 3}[colour] * depth // 8
+    raw = zlib.decompress(idat)
+    return {raw[y * (row + 1)] for y in range(h)}
+
+
+def _encode_filtered(image: np.ndarray, kinds) -> bytes:
+    """PNG bytes of ``image`` with row y filtered by ``kinds[y % len(kinds)]``
+    (the PNG specification's five filters, written out per byte)."""
+    if image.dtype == np.uint16:
+        rows, colour, depth, bpp = image.astype(">u2").view(np.uint8), 0, 16, 2
+    elif image.ndim == 3:
+        rows, colour, depth, bpp = image.reshape(image.shape[0], -1), 2, 8, 3
+    else:
+        rows, colour, depth, bpp = image, 0, 8, 1
+    h, w = image.shape[:2]
+    rows = rows.reshape(h, -1).astype(np.int64)
+    out = bytearray()
+    prior = np.zeros(rows.shape[1], np.int64)
+    for y in range(h):
+        kind, cur = kinds[y % len(kinds)], rows[y]
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])
+        if kind == 0:
+            pred = np.zeros_like(cur)
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = prior
+        elif kind == 3:
+            pred = (left + prior) // 2
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        out += bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+        prior = cur
+
+    def chunk(kind, data):
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                                               0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("kind", ["rgb8", "grey8", "grey16"])
+def test_port_written_png_reads_back_in_pil(tmp_path, kind):
+    image = _images()[kind]
+    path = str(tmp_path / "a.png")
+    png.write_png(path, image)
+    with Image.open(path) as im:
+        got = np.asarray(im)
+    np.testing.assert_array_equal(got, image)
+    back = png.read_png(path)
+    assert back.dtype == image.dtype and back.shape == image.shape
+    np.testing.assert_array_equal(back, image)
+    assert _filters(open(path, "rb").read()) == {0}
+
+
+@pytest.mark.parametrize("kind", ["rgb8", "grey8", "grey16"])
+def test_pil_written_png_decodes_in_port(kind):
+    image = _images(seed=1)[kind]
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    data = buf.getvalue()
+    assert {1, 2, 4} <= _filters(data)  # PIL picked Sub, Up and Paeth rows
+    got = png.decode_png(data)
+    assert got.dtype == image.dtype
+    np.testing.assert_array_equal(got, image)
+
+
+@pytest.mark.parametrize("kind", ["rgb8", "grey8", "grey16"])
+def test_every_row_filter_decodes(kind):
+    image = _images(seed=2)[kind]
+    data = _encode_filtered(image, kinds=(0, 1, 2, 3, 4, 3, 4, 1))
+    assert _filters(data) == {0, 1, 2, 3, 4}
+    np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), image)
+    np.testing.assert_array_equal(png.decode_png(data), image)
+
+
+def test_unsupported_images_raise(tmp_path):
+    with pytest.raises(ValueError):
+        png.encode_png(np.zeros((4, 4), np.float32))
+    with pytest.raises(ValueError):
+        png.encode_png(np.zeros((4, 4, 4), np.uint8))
+    buf = io.BytesIO()
+    Image.fromarray(np.zeros((4, 4, 4), np.uint8)).save(buf, format="PNG")  # RGBA
+    with pytest.raises(ValueError):
+        png.decode_png(buf.getvalue())
+    with pytest.raises(ValueError):
+        png.decode_png(b"not a png at all")
+
+
+def test_viz_matches_reference(tmp_path):
+    rng = np.random.RandomState(3)
+    flow = rng.randn(12, 16, 2).astype(np.float32) * 5
+    np.testing.assert_array_equal(viz_t.flow_to_rgb(flow), viz_j.flow_to_rgb(flow))
+    np.testing.assert_array_equal(viz_t.flow_to_rgb(flow, 3.0), viz_j.flow_to_rgb(flow, 3.0))
+    obs, ren = rng.rand(12, 16, 3), rng.rand(12, 16, 3)
+    depth = np.where(rng.rand(12, 16) > 0.5, rng.rand(12, 16), 0.0)
+    over = viz_t.overlay_render(obs, ren, depth)
+    np.testing.assert_array_equal(over, viz_j.overlay_render(obs, ren, depth))
+    mask = rng.rand(12, 16)
+    np.testing.assert_array_equal(viz_t.mask_to_rgb(mask), viz_j.mask_to_rgb(mask))
+    grey = (rng.rand(10, 5) * 255).astype(np.uint8)
+    montage = viz_t.side_by_side(over, grey, viz_t.mask_to_rgb(mask))
+    np.testing.assert_array_equal(montage, viz_j.side_by_side(over, grey,
+                                                              viz_j.mask_to_rgb(mask)))
+    viz_t.save_image(str(tmp_path / "m.png"), montage)
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "m.png")), montage)
