@@ -57,10 +57,10 @@ Phases, one line each (any failure raises and the script exits nonzero):
 8. The top-k route through ``render_batch``, ``render_batch_tri`` and
    ``render_batch_textured`` (``binning="topk"``, B=128, 480x640): each
    launches the top-k kernel and warns as the reference does.
-9. Card against CPU at B=8, float32: ``render_scene`` with each synthesis
+9. Card against CPU, float32: ``render_scene`` at B=4 with each synthesis
    run's assets and slot count, the chunked one z-merging two cols chunks
-   (raster tolerance), ``refine_poses`` on the textured headline assets
-   (atol 1e-3).
+   (raster tolerance), ``refine_poses`` on the textured headline assets at
+   B=8 (atol 1e-3).
 10. Serving: ``PoseRefinerService`` at the flagship config
    (``synthetic_all_c2f``: four classes of at most 576 faces, the sorted
    kernel's route; 480x640, K=4 of which 2 coarse, bf16) with a device
@@ -93,9 +93,9 @@ Phases, one line each (any failure raises and the script exits nonzero):
    (``mfu``); the ms of its parts (synthesis, network inputs, flow GT,
    losses forward + backward, optimizer), each timed alone.  Then the
    micro-overfit of ``tests/test_train.py`` (80 steps on a fixed batch);
-   300 fresh-batch steps of ``synthetic_small.yaml`` through
+   150 fresh-batch steps of ``synthetic_small.yaml`` through
    ``cli.train.main`` (mean loss of the first and last 50 steps, which
-   must fall) and ``--resume`` to 350; last, one train step card against
+   must fall) and ``--resume`` to 200; last, one train step card against
    CPU at B=2, 480x640 (float32 at train_iter 2: losses and monitors rtol
    1e-4; the card's float32 gradient within 1e-1 of each leaf's max of
    its float64 one; float64 at train_iter 1: also the gradient norm, and
@@ -104,7 +104,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
    5e-2 of its leaf's max, and within 1e-3 where the card takes the CPU's
    zoom box, k_zoom and updated pose; Adam on shared gradients: params
    within 1e-6).  Before synthetic_small's directory goes, ``cli.test``
-   scores its 350-step checkpoint on 512 samples: INIT against iteration
+   scores its 200-step checkpoint on 512 samples: INIT against iteration
    4, each with its 95 % interval (printed, not gated).
 13. Evaluation at the flagship config (``synthetic_all_c2f.yaml``: 480x640,
    test B=32, K=4 of which 2 coarse, bf16, four classes of at most 576
@@ -132,6 +132,28 @@ Phases, one line each (any failure raises and the script exits nonzero):
    not; recovery armed over 2 occluders; ``_render_frame`` of a 2-object
    frame card against CPU (raster tolerance; labels equal off depth ties
    within 1e-5 m).
+15. The on-disk datasets at ``lm6d_all.yaml`` (480x640 frames and network,
+   test B=16, K=4, bf16, ``test.init: posecnn``, four classes of at most
+   576 faces): ``gen_procedural_dataset`` on the card (64 frames an object:
+   frames/s, render and PNG-write ms a frame, 1 sorted launch an object)
+   and ``gen_rendered`` on its train split; the PNG decoder, plain Python
+   rows against the C++ unfilter, on a 480x640 RGB frame and its 16-bit
+   depth written with filter 0, Sub/Up and Paeth rows (ms, arrays equal);
+   ``cli.test.main`` on the root and on a copy whose test PNGs are all
+   Paeth rows (poses/s, 4 sorted and 0 cols launches a batch, the two
+   tables equal, the BOP CSV's real ids); ``--init-poses`` from a BOP CSV
+   (every record matched, the same INIT row); the loader alone, the
+   refinement alone and the streamed loop over 4 passes of the test split
+   (ms a batch, the device's idle share from torch.profiler, the host's
+   float32 conversion against the card's copy and conversion); the card's
+   uint8/uint16 conversion bit for bit the host's over every value; one
+   on-disk batch card against CPU (float32, within 1e-5); a root of
+   20,480-face textured OBJ models decimated to 4,096 on load (cols
+   launches a batch); 20 steps of ``cli.train.main`` on disk at
+   ``syn_fraction`` 0.5 (ms a disk and a synthetic step, the loader's wait,
+   finite losses, the last 5 below the first 5); the YCB-Video keyframe
+   protocol with ``--posecnn-mat`` on ``gen_video``'s data (every record
+   matched, one decode a keyframe a batch).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -147,6 +169,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import statistics
 import sys
 import time
@@ -157,6 +180,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PARITY_B = 8
+SCENE_PARITY_B = 4  # render_scene card against CPU (8 until the on-disk phase came)
 FLAGSHIP_PARITY_B = 4  # the service's flagship parity (8 until the training phase came)
 PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
 RGB_ATOL, DEPTH_ATOL = 2e-2, 1e-3  # the repo's raster tolerance, printed beside
@@ -715,7 +739,7 @@ def phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls):
 
 
 def phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls):
-    """render_scene on the card against the same call on the CPU, B=8,
+    """render_scene on the card against the same call on the CPU, B=4,
     float32, for each synthesis run's assets and slot count (the chunked
     run: two cols chunks z-merged on each side); then textured
     refine_poses."""
@@ -730,10 +754,10 @@ def phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls):
     for name, a, nd, _ in runs:
         tex_assets = a if a.textured else tex_assets
         s = _draw_scene(torch.Generator(device=dev).manual_seed(hl.SEED + 1), a.num_classes,
-                        PARITY_B, k, hl.SIZE, num_distractors=nd)
+                        SCENE_PARITY_B, k, hl.SIZE, num_distractors=nd)
         args = (s["scene_cls"], s["scene_poses"],
-                torch.ones((PARITY_B, 1 + nd), dtype=torch.bool, device=dev),
-                k.expand(PARITY_B, 3, 3).contiguous())
+                torch.ones((SCENE_PARITY_B, 1 + nd), dtype=torch.bool, device=dev),
+                k.expand(SCENE_PARITY_B, 3, 3).contiguous())
         rc.reset_launches()
         out_k = render_scene(a, *args, hl.SIZE, lighting=s["lighting"])
         torch.cuda.synchronize()
@@ -744,7 +768,7 @@ def phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls):
         t_cpu = time.perf_counter() - t0
         frac_rgb, frac_d, err = mismatch([t.cpu() for t in out_k], out_p)
         covered = (out_p[1] > 0).float().mean().item()
-        log("parity", case=f"render_scene_{name}", batch=PARITY_B,
+        log("parity", case=f"render_scene_{name}", batch=SCENE_PARITY_B,
             scene_faces=(1 + nd) * a.tri_pos.shape[2], launches=launches,
             rgb_mismatch=frac_rgb, depth_mismatch=frac_d, limit=RASTER_FRAC,
             max_abs_err=err, covered=covered, cpu_s=t_cpu)
@@ -1078,7 +1102,8 @@ def phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts
 BF16_FLOPS_PER_S = 989e12
 TRAIN_STEPS = 20  # timed fused steps at each size
 OVERFIT_STEPS = 80  # tests/test_train.py §test_micro_overfit
-SMALL_STEPS, SMALL_RESUME = 300, 350  # synthetic_small.yaml through cli.train
+# synthetic_small.yaml through cli.train (300, 350 until the on-disk phase came)
+SMALL_STEPS, SMALL_RESUME = 150, 200
 TRAINED_EVAL_N = 512  # cli.test on the checkpoint cli.train wrote
 TRAIN_PARITY_B = 2
 TRAIN_RTOL, GRAD_FRAC, PARAM_ATOL = 1e-4, 1e-3, 1e-6
@@ -1617,18 +1642,18 @@ def run_cli(main_fn, argv):
             (torch.cuda.max_memory_allocated() - base) / 2**20)
 
 
-def experiment_yaml(tmp: str, name: str, **overrides) -> str:
-    """experiments/cfgs/<name> with output_dir in ``tmp`` (and the dataset
-    fields of ``overrides``), written to ``tmp`` -> its path."""
+def experiment_yaml(tmp: str, cfg_file: str, **overrides) -> str:
+    """experiments/cfgs/<cfg_file> with output_dir in ``tmp`` (and the
+    dataset fields of ``overrides``), written to ``tmp`` -> its path."""
     import yaml
 
-    with open(ROOT / "experiments" / "cfgs" / name) as f:
+    with open(ROOT / "experiments" / "cfgs" / cfg_file) as f:
         spec = yaml.safe_load(f)
     spec["output_dir"] = tmp
     spec["dataset"].update(overrides)
     if overrides:
         spec["experiment"] += "_" + "_".join(overrides)
-    path = Path(tmp) / name
+    path = Path(tmp) / cfg_file
     path.write_text(yaml.safe_dump(spec))
     return str(path)
 
@@ -1993,6 +2018,524 @@ def phase_tracking(dev, card, rc, counts):
         raise AssertionError("_render_frame on the card disagrees with the CPU path")
 
 
+DISK_SIZE = (480, 640)  # lm6d_all: frames and network input
+DISK_FRAMES = 64  # generated frames an object (the test split: 19 each, padded to 80)
+DISK_DENSE_FRAMES = 8  # frames an object of the 20,480-face OBJ root
+DISK_TRAIN_STEPS = 20
+DISK_KEYFRAME_FRAMES = 8  # gen_video frames of the YCB-style sequence (every other a keyframe)
+DISK_PARITY_B = 4  # rows of one on-disk batch refined on card and CPU
+DISK_LOOP_PASSES = 4  # passes of the test split in the loader and loop timings
+DECODE_REPS = 5
+
+
+def encode_filtered(image, kind) -> bytes:
+    """PNG bytes of ``image`` (uint8 RGB or uint16 grey) with every row
+    filtered by ``kind``: 0, 4 (Paeth) or "sub_up" (Sub and Up rows in
+    turn); vectorised, since a filter predicts from the unfiltered bytes."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from deepim_tpu_torch.data import png
+
+    if image.dtype == np.uint16:
+        rows, colour, depth, bpp = image.astype(">u2").view(np.uint8), 0, 16, 2
+    else:
+        rows, colour, depth, bpp = image, 2, 8, 3
+    h, w = image.shape[:2]
+    cur = rows.reshape(h, -1).astype(np.int16)
+    left = np.pad(cur, ((0, 0), (bpp, 0)))[:, :-bpp]
+    up = np.pad(cur, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+    if kind == 0:
+        pred, kinds = np.zeros_like(cur), np.zeros(h, np.uint8)
+    elif kind == 4:
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        kinds = np.full(h, 4, np.uint8)
+    else:
+        kinds = np.where(np.arange(h) % 2 == 0, 1, 2).astype(np.uint8)
+        pred = np.where((kinds == 1)[:, None], left, up)
+    raw = np.concatenate([kinds[:, None], ((cur - pred) % 256).astype(np.uint8)], 1)
+    return (png._SIGNATURE
+            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(raw.tobytes())) + png._chunk(b"IEND", b""))
+
+
+def write_textured_obj(path: Path, mesh, name: str) -> None:
+    """``mesh`` (with uv and texture) as ``path`` + an MTL and a PNG map."""
+    import numpy as np
+
+    from deepim_tpu_torch.data.png import write_png
+
+    write_png(str(path.parent / f"{name}.png"), np.round(mesh.texture * 255).astype(np.uint8))
+    (path.parent / f"{name}.mtl").write_text(f"newmtl m\nKd 0.7 0.7 0.7\nmap_Kd {name}.png\n")
+    lines = [f"mtllib {name}.mtl", "usemtl m"]
+    lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in mesh.vertices.tolist()]
+    lines += [f"vt {u!r} {v!r}" for u, v in mesh.uv.tolist()]
+    lines += [f"f {a}/{a} {b}/{b} {c}/{c}" for a, b, c in (mesh.faces + 1).tolist()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def disk_yaml(tmp: str, cfg_file: str, train=None, **dataset) -> str:
+    """:func:`experiment_yaml` with ``train`` fields overridden too."""
+    import yaml
+
+    path = experiment_yaml(tmp, cfg_file, **dataset)
+    if train:
+        spec = yaml.safe_load(Path(path).read_text())
+        spec["train"].update(train)
+        Path(path).write_text(yaml.safe_dump(spec))
+    return path
+
+
+def table_rows(text: str) -> list[str]:
+    """The per-iteration lines and the table of a cli.test run."""
+    keep = ("[INIT]", "[iter", "MEAN")
+    return [ln for ln in text.splitlines()
+            if ln.startswith(keep) or (ln[:1].isalpha() and "±" in ln)]
+
+
+def phase_disk(dev, card, rc, counts):
+    """The on-disk datasets at full width (experiments/cfgs/lm6d_all.yaml:
+    480x640 frames and network input, bf16, K=4, test.init posecnn, four
+    classes of at most 576 faces): generate an LM6d root on the card
+    (gen_procedural_dataset, DISK_FRAMES an object; gen_rendered on its
+    train split); the decoder plain against C++ on its frames written with
+    filter 0, Sub/Up and Paeth rows; a copy of the root whose test PNGs are
+    Paeth rows; cli.test on both roots (equal tables), the loader alone,
+    the refinement alone, the device's idle share over the streamed loop,
+    --init-poses from a BOP CSV, one batch card against CPU and the card's
+    uint8/uint16 conversion against the host's; a root of 20,480-face OBJ
+    models with MTL and texture, decimated to 4,096 on load (the cols
+    kernel); DISK_TRAIN_STEPS of cli.train on disk at syn_fraction 0.5;
+    the YCB-Video keyframe protocol with --posecnn-mat."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from scipy.io import savemat
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.cli import train as cli_train
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.data import lm6d, png, toolkit
+    from deepim_tpu_torch.data import video as video_data
+    from deepim_tpu_torch.eval import write_bop_csv
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES, texturize
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+    from deepim_tpu_torch.train import train as train_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root_a, root_b = f"{tmp}/lm6d", f"{tmp}/lm6d_paeth"
+        path = disk_yaml(tmp, "lm6d_all.yaml", root=root_a)
+        cfg = update_config(path)
+        d = cfg.dataset
+        objects, size = list(d.objects), (d.image_height, d.image_width)
+        k_np = np.array([[d.fx, 0, d.cx], [0, d.fy, d.cy], [0, 0, 1]], np.float32)
+
+        # 1. Generate the root on the card.
+        def generate(_):
+            toolkit.gen_procedural_dataset(root_a, objects, k_np, size,
+                                           frames_per_obj=DISK_FRAMES, device=dev)
+
+        text, gen_s, gen_launches, _ = run_cli(generate, [])
+        meshes = {o: PROCEDURAL_MESHES[o]() for o in objects}
+        ds = lm6d.LM6DDataset(root_a, objects)
+        t0 = time.perf_counter()
+        n_rendered = toolkit.gen_rendered(ds, meshes, k_np, size, device=dev)
+        ren_s = time.perf_counter() - t0
+        frames = len(objects) * DISK_FRAMES
+        log("disk_gen", objects=len(objects), frames=frames, size=f"{size[0]}x{size[1]}",
+            frames_per_s=frames / gen_s, seconds=gen_s,
+            render_ms_per_frame=_number(r"render ([\d.]+) ms a frame", text),
+            png_write_ms_per_frame=_number(r"PNG write ([\d.]+) ms a frame", text),
+            png_write_share=_number(r"PNG write ([\d.]+) ms a frame", text) * frames
+            / 1e3 / gen_s, launches=gen_launches, rendered_views=n_rendered,
+            rendered_per_s=n_rendered / ren_s, card=repr(card))
+        if gen_launches["raster_sorted"] != len(objects) or gen_launches["raster_cols"]:
+            raise AssertionError(f"gen_observed missed one sorted render an object: "
+                                 f"{gen_launches}")
+        recs = [r for o in objects for r in ds.gt_roidb(o, "test")]
+        if len(recs) % cfg.test.batch_size == 0:
+            raise AssertionError("the generated test split needs no padding")
+
+        # 2. The decoder, plain against C++, and the Paeth copy of the root.
+        shutil.copytree(root_a, root_b)
+        sample = ds.load_frame_raw(recs[0])
+        timings = {}
+        for image_kind, image in (("rgb", sample[0]), ("depth16", sample[1])):
+            for kind in (0, "sub_up", 4):
+                data = encode_filtered(image, kind)
+                fast = png.decode_png(data)
+                t0 = time.perf_counter()
+                plain = png.decode_png(data, plain=True)
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                ms = []
+                for _ in range(DECODE_REPS):
+                    t0 = time.perf_counter()
+                    png.decode_png(data)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                if not (np.array_equal(fast, image) and np.array_equal(plain, image)):
+                    raise AssertionError(f"decode of {image_kind} filter {kind} differs")
+                timings[f"{image_kind}_{kind}"] = (statistics.median(ms), plain_ms)
+        for (image_kind, kind), (ms, plain_ms) in zip(
+                [(a, b) for a in ("rgb", "depth16") for b in (0, "sub_up", 4)], timings.values()):
+            log("disk_decode", image=image_kind, filter=kind, size=f"{size[0]}x{size[1]}",
+                cpp_ms=ms, plain_ms=plain_ms, speedup=plain_ms / ms, equal=True, card=repr(card))
+
+        def paeth(path):
+            Path(path).write_bytes(encode_filtered(png.read_png(path), 4))
+
+        ds_b = lm6d.LM6DDataset(root_b, objects)
+        paths = [ds_b._obs(r.scene, r.frame, s) for r in recs for s in ("color.png", "depth.png")]
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(paeth, paths))
+        filters = {png_filters(Path(p).read_bytes()) for p in paths[:2]}
+        if filters != {(4,)}:
+            raise AssertionError(f"the Paeth root's PNGs have row filters {filters}")
+
+        # 3. cli.test on both roots, with --save-poses.
+        save_checkpoint(checkpoint_dir(cfg), hl.SEED, hl.random_model(len(objects)).state_dict())
+        bs, k_iters = cfg.test.batch_size, cfg.test.test_iter
+        n_pad = (len(recs) + bs - 1) // bs * bs
+        batches = n_pad // bs
+        outs = {}
+        for tag, root in (("warm", root_a), ("filter0", root_a), ("paeth", root_b)):
+            p = disk_yaml(tmp, "lm6d_all.yaml", root=root)
+            text, seconds, launches, peak = run_cli(
+                cli_test.main, ["--cfg", p, "--device", str(dev), "--save-poses"])
+            npz = np.load(Path(tmp) / cfg.experiment / "refined_poses.npz")
+            outs[tag] = (text, seconds, launches, peak, npz["traj"],
+                         (Path(tmp) / cfg.experiment / "bop_results.csv").read_text())
+        counts["disk_test"] = outs["paeth"][2]
+        for tag in ("filter0", "paeth"):
+            text, seconds, launches, peak, traj, _ = outs[tag]
+            log("disk_test", root=tag, records=len(recs), padded_to=n_pad, batch=bs,
+                iters=k_iters, dtype=cfg.network.dtype, seconds=seconds,
+                poses_per_s=_number(r"\(([\d.]+) poses/s", text), peak_mib=peak,
+                sorted_per_batch=launches["raster_sorted"] / batches,
+                cols_per_batch=launches["raster_cols"] / batches,
+                predicted_sorted_per_batch=k_iters, predicted_cols_per_batch=0,
+                last_row=_row(text, f"[iter {k_iters}]"), mean_row=_row(text, "MEAN"),
+                card=repr(card))
+            if launches["raster_sorted"] != batches * k_iters or launches["raster_cols"]:
+                raise AssertionError(f"an on-disk refine render missed the sorted kernel: "
+                                     f"{launches}")
+            if traj.shape != (k_iters + 1, len(recs), 3, 4) or not np.isfinite(traj).all():
+                raise AssertionError(f"refined_poses.npz holds {traj.shape}")
+        print("\n".join(table_rows(outs["paeth"][0])), flush=True)
+        traj_diff = float(np.abs(outs["paeth"][4] - outs["filter0"][4]).max())
+        same_table = table_rows(outs["paeth"][0]) == table_rows(outs["filter0"][0])
+        bop_ids = [ln.split(",")[:3] for ln in outs["paeth"][5].splitlines()[1:]]
+        want_ids = [[str(int(r.scene)), str(int(r.frame)), str(r.class_idx + 1)] for r in recs]
+        log("disk_test_roots", tables_equal=same_table, traj_max_diff=traj_diff,
+            bop_rows=len(bop_ids), bop_ids_real=bop_ids == want_ids)
+        if not same_table or bop_ids != want_ids:
+            raise AssertionError("the filter-0 and Paeth roots gave other tables or BOP ids")
+
+        # --init-poses from a BOP CSV of the roots' init poses.
+        csv = f"{tmp}/init.csv"
+        write_bop_csv(csv, np.stack([r.init_pose for r in recs]),
+                      np.array([r.class_idx + 1 for r in recs]),
+                      scene_ids=np.array([int(r.scene) for r in recs]),
+                      im_ids=np.array([int(r.frame) for r in recs]))
+        shutil.rmtree(f"{root_b}/init_poses")  # without --init-poses they would be GT
+        text, _, _, _ = run_cli(cli_test.main, ["--cfg", p, "--device", str(dev),
+                                                "--init-poses", csv])
+        matched = int(_number(r"matched (\d+)/", text))
+        log("disk_init_poses", matched=matched, records=len(recs),
+            init_row_equal=_row(text, "[INIT]") == _row(outs["paeth"][0], "[INIT]"))
+        if matched != len(recs) or _row(text, "[INIT]") != _row(outs["paeth"][0], "[INIT]"):
+            raise AssertionError("--init-poses did not reproduce the roots' init poses")
+
+        # The loader alone, the refinement alone and the streamed loop (what
+        # cli.test runs), over DISK_LOOP_PASSES passes of the test split.
+        p = disk_yaml(tmp, "lm6d_all.yaml", root=root_b)
+        cfg_b = update_config(p)
+        assets, _, _ = load_assets_and_names(cfg_b, eval_set=True, device=dev)
+        model = hl.random_model(len(objects)).to(dev).eval()
+        k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
+        args = cli_test.parse_args(["--cfg", p])
+        pin = dev.type == "cuda"
+        loop = recs * DISK_LOOP_PASSES
+        loop_n = -(-len(loop) // bs) * bs
+        padded = loop + loop[-1:] * (loop_n - len(loop))
+        extra = {"pose_src": np.stack([r.pose for r in padded]),
+                 "pose_tgt": np.stack([r.pose for r in padded]),
+                 "class_idx": np.array([r.class_idx for r in padded], np.int64)}
+
+        def stream(dsx, pin_memory, keep=()):
+            for b in lm6d.prefetch_iter(lm6d.iter_frame_batches(
+                    dsx, loop, bs, pad_to=loop_n, pin_memory=pin_memory, extra=extra)):
+                yield {k: v for k, v in b.items() if k not in ("obs_depth", "obs_mask")
+                       or k in keep}  # lm6d_all's network takes neither
+
+        loop_batches = loop_n // bs
+        loader_ms = {}
+        for tag, dsx in (("filter0", ds), ("paeth", ds_b)):
+            list(lm6d.iter_frame_batches(dsx, recs[:bs], bs, pin_memory=pin))  # warm
+            t0 = time.perf_counter()
+            for _ in stream(dsx, pin):
+                pass
+            loader_ms[tag] = (time.perf_counter() - t0) * 1e3 / loop_batches
+        host = list(stream(ds_b, False, keep=("obs_depth", "obs_mask")))
+        as_tested = [{k: v for k, v in b.items() if k not in ("obs_depth", "obs_mask")}
+                     for b in host]
+        kw = dict(num_iters=k_iters, out_size=(cfg.network.input_height, cfg.network.input_width))
+        refine_ms = ms_per_call(lambda: cli_test.refine_batches(model, assets, as_tested, k_cam,
+                                                                **kw), 2) / loop_batches
+        busy_ms, wall_ms = device_busy(lambda: cli_test.refine_batches(
+            model, assets, stream(ds_b, pin), k_cam, **kw))
+        stack_ms = batch_host_float_ms(host[0])
+        pinned = {k: host[0][k].pin_memory() if pin else host[0][k]
+                  for k in ("obs_rgb", "obs_depth")}
+        conv_ms = ms_per_call(lambda: lm6d.to_device(pinned, dev), 5)
+        streamed = wall_ms / loop_batches
+        log("disk_loop", batch=bs, batches=loop_batches, passes=DISK_LOOP_PASSES,
+            decode_threads=4, loader_ms_per_batch_filter0=loader_ms["filter0"],
+            loader_ms_per_batch_paeth=loader_ms["paeth"], refine_ms_per_batch=refine_ms,
+            streamed_ms_per_batch=streamed, device_busy_ms=busy_ms, wall_ms=wall_ms,
+            idle_share=1 - busy_ms / wall_ms,
+            loader_hidden_share=min(1.0, max(0.0, (loader_ms["paeth"] + refine_ms - streamed)
+                                             / loader_ms["paeth"])),
+            host_float_convert_ms_per_batch=stack_ms, card_copy_convert_ms_per_batch=conv_ms,
+            bytes_per_batch_u8=sum(host[0][k].numel() * host[0][k].element_size()
+                                   for k in ("obs_rgb", "obs_depth")),
+            card=repr(card))
+
+        # The card's conversion against the host's, every uint8 and uint16 value.
+        u8 = torch.arange(256, dtype=torch.uint8)
+        u16 = torch.from_numpy(np.arange(65536, dtype=np.uint16).view(np.int16))
+        got = lm6d.to_device({"obs_rgb": u8, "obs_depth": u16}, dev)
+        want_rgb = np.arange(256, dtype=np.uint8).astype(np.float32) / 255.0
+        want_dep = np.arange(65536, dtype=np.uint16).astype(np.float32) / lm6d.DEPTH_FACTOR
+        batch_eq = all(torch.equal(lm6d.to_device(host[0], dev)[k].cpu(),
+                                   lm6d.to_device(host[0], "cpu")[k])
+                       for k in ("obs_rgb", "obs_depth"))
+        conv_ok = (np.array_equal(got["obs_rgb"].cpu().numpy(), want_rgb)
+                   and np.array_equal(got["obs_depth"].cpu().numpy(), want_dep) and batch_eq)
+        log("disk_convert", uint8_values=256, uint16_values=65536, bit_equal=conv_ok)
+        if not conv_ok:
+            raise AssertionError("the card's uint8/uint16 conversion differs from the host's")
+
+        # One CPU-made batch, card against CPU (float32).
+        part = {k: (v[:DISK_PARITY_B].clone() if isinstance(v, torch.Tensor) else None)
+                for k, v in as_tested[0].items()}
+        trajs = []
+        for where in (dev, torch.device("cpu")):
+            a = load_assets_and_names(cfg_b, eval_set=True, device=where)[0]
+            m = hl.random_model(len(objects), dtype=torch.float32).to(where).eval()
+            t0 = time.perf_counter()
+            trajs.append(cli_test.refine_batches(m, a, [part], k_cam.to(where),
+                                                 **kw)["traj"].cpu())
+            cpu_s = time.perf_counter() - t0
+        diff = (trajs[0] - trajs[1]).abs().max().item()
+        moved = (trajs[1][-1] - trajs[1][0]).abs().max().item()
+        log("disk_parity", batch=DISK_PARITY_B, dtype="float32", max_pose_diff=diff,
+            atol=EVAL_TRAJ_ATOL, moved=moved, cpu_s=cpu_s)
+        if not diff <= EVAL_TRAJ_ATOL or not moved > 1e-3:
+            raise AssertionError("an on-disk batch refines differently on card and CPU")
+        del host, as_tested, part
+
+        # 4. 20,480-face OBJ models with MTL and texture, decimated on load.
+        dense = ["icosphere_dense", "icosphere_dense2"]
+        root_d = f"{tmp}/lm6d_dense"
+        rc.reset_launches()
+        toolkit.gen_observed(root_d, {o: PROCEDURAL_MESHES[o]() for o in dense}, k_np, size,
+                             frames_per_obj=DISK_DENSE_FRAMES, device=dev)
+        dense_gen = dict(rc.LAUNCHES)
+        for i, o in enumerate(dense):
+            mdir = Path(root_d) / "models" / o
+            (mdir / "textured.ply").unlink()
+            write_textured_obj(mdir / "textured.obj", texturize(PROCEDURAL_MESHES[o](), 70 + i),
+                               "textured")
+        p = disk_yaml(tmp, "lm6d_all.yaml", root=root_d, objects=dense)
+        cfg_d = update_config(p)
+        save_checkpoint(checkpoint_dir(cfg_d), hl.SEED, hl.random_model(len(dense)).state_dict())
+        t0 = time.perf_counter()
+        a_dense = load_assets_and_names(cfg_d, eval_set=True, device="cpu")[0]
+        load_s = time.perf_counter() - t0
+        text, seconds, launches, _ = run_cli(cli_test.main, ["--cfg", p, "--device", str(dev)])
+        n_dense = sum(len(lm6d.LM6DDataset(root_d, dense).gt_roidb(o, "test")) for o in dense)
+        dense_batches = (n_dense + bs - 1) // bs
+        counts["disk_test_dense"] = launches
+        log("disk_dense", models="20,480-face textured OBJ", max_faces=cfg_d.dataset.max_faces,
+            faces_after_load=a_dense.tri_pos.shape[2], textured=a_dense.textured,
+            load_s=load_s, records=n_dense, batches=dense_batches, seconds=seconds,
+            cols_per_batch=launches["raster_cols"] / dense_batches,
+            sorted_per_batch=launches["raster_sorted"] / dense_batches, gen_launches=dense_gen,
+            mean_row=_row(text, "MEAN"))
+        if launches["raster_cols"] < dense_batches or not a_dense.textured:
+            raise AssertionError(f"the dense OBJ run missed the cols kernel: {launches}")
+
+        # 5. cli.train on disk, syn_fraction 0.5.
+        p = disk_yaml(tmp, "lm6d_all.yaml", root=root_a,
+                      train={"num_steps": DISK_TRAIN_STEPS, "log_every": 1, "warmup_steps": 0,
+                             "checkpoint_every": 10 ** 6, "syn_fraction": 0.5})
+        cfg_t = update_config(p)
+        step_ms = {"disk": [], "synthetic": []}
+        batcher = []
+
+        def timed(kind, make):
+            def wrapped(*a, **kw):
+                fn = make(*a, **kw)
+                if kind == "disk":
+                    batcher.append(fn.batcher)
+
+                def step(state, g):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(state, g)
+                    torch.cuda.synchronize()
+                    step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+                    return out
+                step.batcher = getattr(fn, "batcher", None)
+                return step
+            return wrapped
+
+        make_disk, make_syn = cli_train.make_disk_step, train_mod.make_synthetic_train_step
+        cli_train.make_disk_step = timed("disk", make_disk)
+        train_mod.make_synthetic_train_step = timed("synthetic", make_syn)
+        try:
+            text, seconds, launches, peak = run_cli(cli_train.main,
+                                                    ["--cfg", p, "--device", str(dev)])
+        finally:
+            cli_train.make_disk_step, train_mod.make_synthetic_train_step = make_disk, make_syn
+        counts["disk_train"] = launches
+        losses = [float(x) for x in __import__("re").findall(r"loss=([\d.eE+-]+)", text)]
+        n_disk = len(step_ms["disk"])
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        log("disk_train", steps=DISK_TRAIN_STEPS, batch=cfg_t.train.batch_size,
+            disk_steps=n_disk, synthetic_steps=len(step_ms["synthetic"]),
+            disk_step_ms=statistics.median(step_ms["disk"][1:]),
+            synthetic_step_ms=statistics.median(step_ms["synthetic"][1:]),
+            loader_wait_ms_per_disk_step=batcher[0].wait_s * 1e3 / max(n_disk, 1),
+            loss_first5=first, loss_last5=last, seconds=seconds, peak_mib=peak,
+            launches=launches, card=repr(card))
+        if (n_disk != DISK_TRAIN_STEPS // 2 or len(losses) != DISK_TRAIN_STEPS
+                or not all(math.isfinite(x) for x in losses) or not last < first):
+            raise AssertionError(f"on-disk training: {n_disk} disk steps, losses {losses}")
+
+        # 6. The YCB-Video keyframe protocol with PoseCNN .mat inits.
+        root_v = f"{tmp}/ycbv"
+        vds = video_data.gen_video(root_v, meshes, k_np, size, num_frames=DISK_KEYFRAME_FRAMES,
+                                   device=dev)
+        seq = vds.sequences()[0]
+        vds.write_keyframes([(seq, f) for f in vds.frame_ids(seq)[::2]])
+        kf_recs = video_data.keyframe_records(vds)
+        os.makedirs(f"{tmp}/posecnn")
+        rng = np.random.RandomState(5)
+        for ki, (s, f) in enumerate(vds.keyframes()):
+            rois, poses = [], []
+            for o in vds.objects_in(s):
+                gt = vds.keyframe_pose(s, f, o)
+                q = _mat_quat(gt[:, :3]) + rng.normal(0, 0.02, 4)
+                rois.append([0, objects.index(o) + 1, 0, 0, 0, 0, 0.9])
+                poses.append(np.concatenate([q, gt[:, 3] + rng.normal(0, 0.01, 3)]))
+            savemat(f"{tmp}/posecnn/{ki:06d}.mat", {"rois": np.asarray(rois, np.float32),
+                                                   "poses": np.asarray(poses, np.float32)})
+        p = disk_yaml(tmp, "lm6d_all.yaml", name="ycb_video", root=root_v,
+                      obj_ids=list(range(1, len(objects) + 1)))
+        save_checkpoint(checkpoint_dir(update_config(p)), hl.SEED,
+                        hl.random_model(len(objects)).state_dict())
+        decodes = []
+        load = video_data.VideoDataset.load_frame_samples
+
+        def counted(self, s, f):
+            decodes.append((s, f))
+            return load(self, s, f)
+
+        video_data.VideoDataset.load_frame_samples = counted
+        try:
+            text, seconds, launches, _ = run_cli(cli_test.main, [
+                "--cfg", p, "--device", str(dev), "--posecnn-mat", f"{tmp}/posecnn"])
+        finally:
+            video_data.VideoDataset.load_frame_samples = load
+        counts["disk_ycb_keyframes"] = launches
+        matched = int(_number(r"matched (\d+)/", text))
+        padded = kf_recs + kf_recs[-1:] * (-len(kf_recs) % bs)
+        want_decodes = sum(len({(r.scene, r.frame) for r in padded[i:i + bs]})
+                           for i in range(0, len(padded), bs))  # once a keyframe a batch
+        log("disk_keyframes", keyframes=len(vds.keyframes()), records=len(kf_recs),
+            matched=matched, decodes=len(decodes), expected_decodes=want_decodes,
+            decodes_per_keyframe=len(decodes)
+            / len(vds.keyframes()), seconds=seconds,
+            poses_per_s=_number(r"\(([\d.]+) poses/s", text),
+            sorted_per_batch=launches["raster_sorted"] / -(-len(kf_recs) // bs),
+            mean_row=_row(text, "MEAN"), card=repr(card))
+        if matched != len(kf_recs) or len(decodes) != want_decodes:
+            raise AssertionError(f"keyframe protocol: matched {matched}/{len(kf_recs)}, "
+                                 f"{len(decodes)} decodes of {len(vds.keyframes())} keyframes")
+
+
+def png_filters(data: bytes) -> tuple[int, ...]:
+    """The distinct row filters of a PNG's rows."""
+    import struct
+    import zlib
+
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        hdr = struct.unpack(">IIBBBBB", body) if kind == b"IHDR" else hdr
+        idat += body if kind == b"IDAT" else b""
+    w, h, depth, colour = hdr[:4]
+    row = w * {0: 1, 2: 3}[colour] * depth // 8
+    raw = zlib.decompress(idat)
+    return tuple(sorted({raw[y * (row + 1)] for y in range(h)}))
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """torch.profiler (CUDA activity) over ``fn()`` -> (the device's busy
+    ms, summed over its kernels and copies, the wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    busy = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return busy / 1e3, wall
+
+
+def batch_host_float_ms(batch) -> float:
+    """ms the host takes to convert one loader batch to float32 as the
+    reference does (``astype(np.float32) / x``)."""
+    import numpy as np
+
+    rgb, dep = batch["obs_rgb"].numpy(), batch["obs_depth"].numpy().view(np.uint16)
+    t0 = time.perf_counter()
+    _ = rgb.astype(np.float32) / 255.0, dep.astype(np.float32) / 1000.0
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _mat_quat(r):
+    """(3, 3) rotation -> (w, x, y, z) quaternion (numpy)."""
+    import numpy as np
+
+    w = math.sqrt(max(0.0, 1.0 + r[0, 0] + r[1, 1] + r[2, 2])) / 2
+    x = math.copysign(math.sqrt(max(0.0, 1.0 + r[0, 0] - r[1, 1] - r[2, 2])) / 2, r[2, 1] - r[1, 2])
+    y = math.copysign(math.sqrt(max(0.0, 1.0 - r[0, 0] + r[1, 1] - r[2, 2])) / 2, r[0, 2] - r[2, 0])
+    z = math.copysign(math.sqrt(max(0.0, 1.0 - r[0, 0] - r[1, 1] + r[2, 2])) / 2, r[1, 0] - r[0, 1])
+    return np.array([w, x, y, z])
+
+
 def _quat_mat(q):
     import numpy as np
 
@@ -2040,7 +2583,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-14 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-15 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -2122,6 +2665,9 @@ def run_phases(dev, card: str) -> list[dict]:
     # Evaluation, and the video toolkit with tracking.
     phase_evaluation(dev, card, rc, counts)
     phase_tracking(dev, card, rc, counts)
+
+    # The on-disk datasets: generation, decoding, cli.test and cli.train.
+    phase_disk(dev, card, rc, counts)
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -4,26 +4,36 @@ Port of ``deepim_tpu/cli/test.py`` on one device: ``cuda:0`` unless
 ``--device`` names another (``--device cpu`` for the CPU); without CUDA it
 raises rather than fall back.  It restores the experiment's port
 checkpoint, runs the K-iteration refinement (or, with ``--hypotheses``,
-multi-hypothesis refinement and selection) over a generated test set,
-prints the reference's per-iteration lines and ADD(-S)/(5°, 5 cm)/Proj-2D
-table, and writes ``eval_results.json``, with ``--save-poses``
-``refined_poses.npz`` and ``bop_results.csv``, with ``--vis`` overlay
-montages under ``vis/``.
+multi-hypothesis refinement and selection) over the test set, prints the
+reference's per-iteration lines and ADD(-S)/(5°, 5 cm)/Proj-2D table, and
+writes ``eval_results.json``, with ``--save-poses`` ``refined_poses.npz``
+and ``bop_results.csv``, with ``--vis`` overlay montages under ``vis/``.
 
-The test sets are generated on the device: ``synthetic*`` and ``modelnet``
-batch ``i`` is :func:`~deepim_tpu_torch.data.synthetic_batch` from a
-``torch.Generator`` seeded ``9000 + i``, ``synthetic_occlusion`` batch
-``i`` :func:`~deepim_tpu_torch.data.synthetic_occlusion_batch` from one
-seeded ``1000 + i``.  These are the port's own fixed protocol sets: torch
-generators draw other numbers than the reference's JAX keys, so a port
-table and a reference table are never computed on the same draws (and a
-card's draws differ from the CPU's).
+Generated test sets are drawn on the device: ``synthetic*`` and
+``modelnet`` batch ``i`` is :func:`~deepim_tpu_torch.data.synthetic_batch`
+from a ``torch.Generator`` seeded ``9000 + i``, ``synthetic_occlusion``
+batch ``i`` :func:`~deepim_tpu_torch.data.synthetic_occlusion_batch` from
+one seeded ``1000 + i``.  These are the port's own fixed protocol sets:
+torch generators draw other numbers than the reference's JAX keys, so a
+port table and a reference table are never computed on the same draws
+(and a card's draws differ from the CPU's).
 
-Not ported yet: the on-disk datasets (``lm6d*``, ``ycb_video``: ROADMAP
-A13, second half, with ``--init-poses`` and ``--posecnn-mat``, which
-raise on generated data as in the reference) and int8 inference
-(``--quant``, ROADMAP A10); both raise before any batch is drawn.  One
-card needs no data-parallel branch (multi-GPU is ROADMAP A14).
+On-disk test sets stream from ``dataset.root``: ``lm6d*`` (and any other
+name) the LM6d layout's ``test`` split of every object, ``ycb_video`` the
+keyframe protocol (every object of a sequence on each keyframe of
+``video_sets/keyframe.txt``).  Frames decode on a thread pool one batch
+ahead (``prefetch_iter``), stack into pinned host slots and convert on the
+device.  Init poses: ``test.init: posecnn`` takes ``init_poses/`` (LM6d;
+GT where there are none), ``perturb`` perturbs GT with a CPU generator
+seeded 7; ``--init-poses`` (a BOP CSV) and ``--posecnn-mat`` (ycb_video)
+then overwrite the records they match.  The last batch is padded with the
+last record; padded rows are left out of the tables and the files, and the
+BOP CSV carries the records' scene and image ids (placeholders, jointly,
+when a name is not numeric).
+
+Not ported: int8 inference (``--quant``, ROADMAP A10), which raises
+before any batch is drawn.  One card needs no data-parallel branch
+(multi-GPU is ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -55,10 +65,12 @@ def parse_args(argv=None):
                    help="write rendered-vs-observed overlay montages (INIT, each "
                         "iteration, GT) for the first N samples")
     p.add_argument("--init-poses", default="",
-                   help="BOP results CSV of external init poses (on-disk datasets; "
-                        "not ported yet)")
+                   help="BOP results CSV of external init poses, matched to the on-disk "
+                        "test records by (scene_id, im_id, obj_id); unmatched records "
+                        "keep their default init")
     p.add_argument("--posecnn-mat", default="",
-                   help="PoseCNN per-keyframe .mat results (ycb_video; not ported yet)")
+                   help="directory of PoseCNN's per-keyframe .mat results ({i:06d}.mat in "
+                        "keyframe.txt order) used as init poses (dataset.name=ycb_video)")
     p.add_argument("--init-rot-noise", type=float, default=-1.0,
                    help="override the init rotation noise std (degrees; max = 3x std)")
     p.add_argument("--init-trans-noise", type=float, default=-1.0,
@@ -113,7 +125,9 @@ def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
     """The eval loop: refine every batch of ``batches`` (dicts with
     ``obs_rgb``, ``pose_src``, ``pose_tgt``, ``class_idx`` and, as the
     model and ``want_depth`` need them, ``obs_mask`` and ``obs_depth``),
-    moved to the assets' device.
+    moved to the assets' device by
+    :func:`~deepim_tpu_torch.data.lm6d.to_device` (non-blocking copies; a
+    loader's uint8 and uint16 frames converted there).
 
     Returns ``traj`` ((num_iters + 1, n, 3, 4) on the device, the inits
     first; (2, n, 3, 4) with ``no_refine`` or ``hypotheses`` > 1),
@@ -121,19 +135,18 @@ def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
     ``vis`` observed frames (numpy).  Batch ``bi`` of ``bs`` rows draws its
     hypotheses from a generator seeded ``17 + bi*bs``.
     """
+    from deepim_tpu_torch.data.lm6d import to_device
     from deepim_tpu_torch.refine import refine_multi_hypothesis, refine_poses
 
     dev = assets.points.device
     trajs, gt_parts, cls_parts, vis_rows = [], [], [], []
-    for bi, batch in enumerate(batches):
-        obs = batch["obs_rgb"].to(dev)
-        init = batch["pose_src"].to(dev)
-        cls = batch["class_idx"].to(dev)
+    for bi, host in enumerate(batches):
+        batch = to_device(host, dev)
+        obs, init, cls = batch["obs_rgb"], batch["pose_src"], batch["class_idx"]
         bs = obs.shape[0]
         ks = k_cam.to(dev).expand(bs, 3, 3).contiguous()
-        obs_mask = batch["obs_mask"].to(dev) if with_mask else None
-        obs_depth = (batch["obs_depth"].to(dev)
-                     if want_depth and "obs_depth" in batch else None)
+        obs_mask = batch["obs_mask"] if with_mask else None
+        obs_depth = batch.get("obs_depth") if want_depth else None
         gt_parts.append(batch["pose_tgt"])
         cls_parts.append(batch["class_idx"])
         if vis and len(vis_rows) < vis:
@@ -188,6 +201,76 @@ def write_vis(assets, vis_dir: str, obs: list[np.ndarray], traj: torch.Tensor,
     return nv
 
 
+def disk_test_set(cfg, args, batch_size: int, want_depth: bool, with_mask: bool,
+                  pin_memory: bool):
+    """The on-disk test set -> (records, batches, number of rows incl.
+    padding).  ``batches`` yields the loader's host batches, with
+    ``pose_src``, ``pose_tgt`` and ``class_idx`` in the same (pinned) slot;
+    decoding runs one batch ahead on a background thread."""
+    from deepim_tpu_torch.data.lm6d import (
+        LM6DDataset, apply_bop_init, iter_frame_batches, prefetch_iter)
+    from deepim_tpu_torch.data.pairs import perturb_poses
+
+    d, t = cfg.dataset, cfg.train
+    if d.name == "ycb_video":
+        from deepim_tpu_torch.data.video import (
+            VideoDataset, apply_posecnn_mat_init, iter_keyframe_batches, keyframe_records)
+
+        ds = VideoDataset(d.root, list(d.objects))
+        if not ds.has_keyframes():
+            raise SystemExit(f"dataset.name=ycb_video needs {d.root}/video_sets/keyframe.txt "
+                             "(the keyframe test list); for tracking use cli.track")
+        records = keyframe_records(ds)
+        frames = iter_keyframe_batches
+    else:
+        ds = LM6DDataset(d.root, list(d.objects))
+        records = [r for obj in d.objects for r in ds.gt_roidb(obj, "test")]
+        frames = iter_frame_batches
+    if not records:
+        raise SystemExit(f"no test records under {d.root}")
+    n = (len(records) + batch_size - 1) // batch_size * batch_size
+    padded = records + [records[-1]] * (n - len(records))
+    pose_gt = np.stack([r.pose for r in padded])
+    init = np.stack([r.pose if r.init_pose is None else r.init_pose for r in padded])
+    if cfg.test.init == "perturb":
+        init = perturb_poses(torch.Generator().manual_seed(7), torch.from_numpy(pose_gt),
+                             t.rot_noise_deg, t.rot_noise_max_deg, tuple(t.trans_noise),
+                             tuple(t.trans_noise_max)).numpy()
+    obj_ids = list(d.obj_ids) or None
+    if args.posecnn_mat:
+        if d.name != "ycb_video":
+            raise SystemExit("--posecnn-mat needs dataset.name=ycb_video")
+        matched = apply_posecnn_mat_init(records, init, args.posecnn_mat, obj_ids=obj_ids)
+        print(f"PoseCNN .mat init poses: matched {matched}/{len(records)} records from "
+              f"{args.posecnn_mat}")
+    if args.init_poses:
+        matched = apply_bop_init(records, init, args.init_poses, obj_ids=obj_ids)
+        print(f"external init poses: matched {matched}/{len(records)} records from "
+              f"{args.init_poses}")
+    extra = {"pose_src": init.astype(np.float32), "pose_tgt": pose_gt,
+             "class_idx": np.asarray([r.class_idx for r in padded], np.int64)}
+    drop = [k for k, keep in (("obs_depth", want_depth), ("obs_mask", with_mask)) if not keep]
+
+    def batches():
+        for fr in frames(ds, records, batch_size, pad_to=n, pin_memory=pin_memory, extra=extra):
+            for k in drop:
+                del fr[k]
+            yield fr
+
+    return records, prefetch_iter(batches()), n
+
+
+def bop_ids(records) -> tuple[np.ndarray | None, np.ndarray | None]:
+    """The records' (scene ids, image ids) as integers, or (None, None),
+    jointly, when a name is not numeric: real scene ids beside made-up
+    image ids would score against the wrong ground truths."""
+    try:
+        return (np.asarray([int(r.scene) for r in records], np.int64),
+                np.asarray([int(r.frame) for r in records], np.int64))
+    except ValueError:
+        return None, None
+
+
 def main(argv=None) -> int:
     from deepim_tpu_torch.cli.train import _device, load_assets_and_names
     from deepim_tpu_torch.config import update_config
@@ -215,10 +298,6 @@ def main(argv=None) -> int:
         raise SystemExit("--init-poses/--posecnn-mat need an on-disk dataset; got "
                          f"dataset.name={d.name!r}, whose generated frames have no "
                          "(scene, im, obj) ids to match")
-    if not generated(d.name):
-        raise NotImplementedError(
-            f"dataset.name={d.name!r}: the on-disk test sets (lm6d, ycb_video) wait for "
-            "their loaders (ROADMAP A13, second half)")
     if args.init_rot_noise >= 0:
         t = dataclasses.replace(t, rot_noise_deg=args.init_rot_noise,
                                 rot_noise_max_deg=3.0 * args.init_rot_noise)
@@ -251,24 +330,37 @@ def main(argv=None) -> int:
     coarse_iters = cfg.test.coarse_iters if args.coarse_iters < 0 else args.coarse_iters
     k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
     bs = cfg.test.batch_size
-    n = args.num_samples or max(2048, 8 * bs)
-    n = (n // bs) * bs
-
+    want_depth = bool(n_cfg.input_depth) or args.hypotheses > 1
+    records = None
     _sync(dev)
     t0 = time.time()
+    if generated(d.name):
+        n = args.num_samples or max(2048, 8 * bs)
+        n = num_real = (n // bs) * bs
+        batches = eval_stream(cfg, assets, k_cam, n // bs, bs)
+        source = "synthesis included"
+    else:
+        records, batches, n = disk_test_set(cfg, args, bs, want_depth, bool(n_cfg.input_mask),
+                                            pin_memory=dev.type == "cuda")
+        num_real = len(records)
+        source = "PNG loading included"
     out = refine_batches(
-        model, assets, eval_stream(cfg, assets, k_cam, n // bs, bs), k_cam,
-        cfg.test.test_iter, out_size, coarse_iters=coarse_iters, coarse_size=coarse_size,
-        hypotheses=args.hypotheses, no_refine=args.no_refine,
-        want_depth=bool(n_cfg.input_depth) or args.hypotheses > 1,
-        with_mask=bool(n_cfg.input_mask), vis=args.vis)
+        model, assets, batches, k_cam, cfg.test.test_iter, out_size,
+        coarse_iters=coarse_iters, coarse_size=coarse_size, hypotheses=args.hypotheses,
+        no_refine=args.no_refine, want_depth=want_depth, with_mask=bool(n_cfg.input_mask),
+        vis=args.vis)
     traj = out["traj"]
     _sync(dev)
     dt = time.time() - t0
     print(f"refined {n} hypotheses x {cfg.test.test_iter} iters in {dt:.2f}s "
-          f"({n / dt:.1f} poses/s on {dev}, synthesis included)")
+          f"({n / dt:.1f} poses/s on {dev}, {source})")
+    n_refined = n
 
-    pose_gt, class_idx = out["pose_gt"], out["class_idx"]
+    # Padded rows (the last record repeated) are scored and exported by
+    # no one.
+    traj = traj[:, :num_real]
+    pose_gt, class_idx = out["pose_gt"][:num_real], out["class_idx"][:num_real]
+    n = num_real
     ks = np.tile(k_cam.cpu().numpy()[None], (n, 1, 1))
     traj_np = traj.cpu().numpy()
     t1 = time.time()
@@ -307,10 +399,19 @@ def main(argv=None) -> int:
             obj_col = oid_map[class_idx]
         else:
             obj_col = class_idx + 1
-        print("WARNING: generated data has no scene/frame ids; the BOP CSV gets "
-              "placeholder scene_id=0 / im_id=row ids")
+        scene_ids = im_ids = None
+        if records is None:
+            print("WARNING: generated data has no scene/frame ids; the BOP CSV gets "
+                  "placeholder scene_id=0 / im_id=row ids")
+        else:
+            scene_ids, im_ids = bop_ids(records)
+            if scene_ids is None:
+                print("WARNING: scene/frame names are not numeric; the BOP CSV gets "
+                      "placeholder scene_id=0 / im_id=row ids, which the BOP toolkit "
+                      "cannot match against real ground truth")
         csv_path = os.path.join(out_dir, "bop_results.csv")
-        write_bop_csv(csv_path, traj_np[-1], obj_col, time_s=float(dt) / max(n, 1))
+        write_bop_csv(csv_path, traj_np[-1], obj_col, scene_ids=scene_ids, im_ids=im_ids,
+                      time_s=float(dt) / max(n_refined, 1))
         print(f"wrote BOP results CSV to {csv_path}")
     return 0
 

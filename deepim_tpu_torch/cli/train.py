@@ -4,8 +4,12 @@ Port of ``deepim_tpu/cli/train.py`` (``parse_args``,
 ``load_assets_and_names``, ``main``) on one device: ``cuda:0`` unless
 ``--device`` names another (``--device cpu`` for the CPU); without CUDA it
 raises rather than fall back.  Synthetic and zoo configs train with the
-fused on-device synthesize-and-train step; the on-disk datasets (``lm6d``,
-``ycb``) are ROADMAP A13 and raise.  The log line and ``train_log.jsonl``
+fused on-device synthesize-and-train step.  The on-disk datasets
+(``lm6d*``, ``ycb``) interleave steps on frames from disk
+(:class:`~deepim_tpu_torch.data.lm6d.TrainBatcher`, GT poses perturbed by
+the step's generator, the train step on a given batch) with fused
+synthetic steps: a ``train.syn_fraction`` share of steps is synthetic, in
+the reference's ``frac_hit`` order.  The log line and ``train_log.jsonl``
 keep the reference's format (``tools/plot_train.py`` reads both
 packages'); checkpoints go to
 ``<output_dir>/<experiment>/checkpoints_torch/``.
@@ -30,7 +34,8 @@ import torch
 from deepim_tpu_torch.geometry.symmetry import (
     CONTINUOUS_Z, LINEMOD_SYMMETRIC, PROCEDURAL_SYMMETRIC, YCB_SYMMETRIC)
 from deepim_tpu_torch.raster.mesh import (
-    PROCEDURAL_MESHES, ZOO_FAMILIES, random_mesh_zoo, texturize)
+    PROCEDURAL_MESHES, ZOO_FAMILIES, decimate_mesh, load_mesh, normalize_mesh,
+    random_mesh_zoo, texturize)
 from deepim_tpu_torch.refine.refiner import RenderAssets, build_assets
 
 # Zoo families that are continuously z-symmetric, like their canonical
@@ -54,20 +59,28 @@ def load_assets_and_names(cfg, eval_set: bool = False,
 
     ``eval_set`` selects ``cfg.dataset.eval_objects`` when there are any
     (the ModelNet unseen-category protocol).  ``synthetic*`` datasets and
-    the ``modelnet`` zoo are built here; the datasets read from disk
-    (``lm6d``, ``ycb``, a ModelNet ``cad_dir``) need the mesh loaders,
-    which are not ported yet, and raise ``NotImplementedError`` rather
-    than serve other meshes.  ``texture_prob`` textures the procedural
-    meshes; the coarse LOD (``lod_faces``) is built only when
-    ``test.coarse_iters`` > 0, the only time it renders.
+    the ``modelnet`` zoo are built here; a ModelNet ``cad_dir`` evaluation
+    set is every .off/.obj/.ply file there, sorted, normalised to
+    ``cad_diameter`` and decimated to ``max_faces``; every other dataset
+    (``lm6d*``, ``ycb*``) reads ``models/{obj}/`` under ``dataset.root``
+    (``LM6DDataset.load_meshes``, decimated to ``max_faces``).
+    ``texture_prob`` textures the procedural meshes; the coarse LOD
+    (``lod_faces``) is built only when ``test.coarse_iters`` > 0, the only
+    time it renders.
     """
     d = cfg.dataset
     names = list(d.eval_objects) if eval_set and d.eval_objects else list(d.objects)
     if d.name == "modelnet" and eval_set and d.cad_dir:
-        raise NotImplementedError(
-            "dataset.cad_dir: loading CAD meshes from disk is not ported yet "
-            "(ROADMAP A13)")
-    if d.name == "modelnet" and not (eval_set and d.eval_objects):
+        files = sorted(fn for fn in os.listdir(d.cad_dir)
+                       if os.path.splitext(fn)[1].lower() in (".off", ".obj", ".ply"))
+        if not files:
+            raise SystemExit(f"dataset.cad_dir={d.cad_dir!r} contains no .off/.obj/.ply "
+                             "mesh files")
+        names = [os.path.splitext(fn)[0] for fn in files]
+        meshes = [decimate_mesh(normalize_mesh(load_mesh(os.path.join(d.cad_dir, fn)),
+                                               d.cad_diameter), d.max_faces)
+                  for fn in files]
+    elif d.name == "modelnet" and not (eval_set and d.eval_objects):
         zoo = random_mesh_zoo(d.zoo_size, d.zoo_seed, tuple(d.zoo_families) or ZOO_FAMILIES,
                               texture_prob=d.texture_prob)
         names = list(zoo)
@@ -80,9 +93,9 @@ def load_assets_and_names(cfg, eval_set: bool = False,
                       if rng_tex.rand() < d.texture_prob else m
                       for i, m in enumerate(meshes)]
     else:
-        raise NotImplementedError(
-            f"dataset.name={d.name!r}: the on-disk dataset loaders are not "
-            "ported yet (ROADMAP A13)")
+        from deepim_tpu_torch.data.lm6d import LM6DDataset
+
+        meshes = LM6DDataset(d.root, names).load_meshes(max_faces=d.max_faces)
     table = {**LINEMOD_SYMMETRIC, **YCB_SYMMETRIC, **PROCEDURAL_SYMMETRIC}
     syms = [_symmetry(n, table) for n in names]
     use_tex = {"auto": None, "on": True, "off": False}[d.use_textures]
@@ -121,6 +134,40 @@ def frac_hit(frac: float, it: int) -> bool:
     return (int(frac * (it + 1)) - int(frac * it)) == 1
 
 
+def on_disk(name: str) -> bool:
+    """Whether ``dataset.name`` trains on frames from disk."""
+    return name.startswith("lm6d") or name == "ycb"
+
+
+def make_disk_step(model, assets: RenderAssets, cfg, names: list[str], k_cam: torch.Tensor):
+    """The on-disk train step: (state, generator) -> (state, metrics) on the
+    next :class:`~deepim_tpu_torch.data.lm6d.TrainBatcher` batch (the
+    ``train`` split of ``names`` under ``dataset.root``, shuffled from
+    ``train.seed``), its GT poses perturbed by ``generator`` with the
+    training noise.  The step carries the batcher as ``.batcher``."""
+    from deepim_tpu_torch.data.lm6d import LM6DDataset, TrainBatcher, to_device
+    from deepim_tpu_torch.data.pairs import perturb_poses
+    from deepim_tpu_torch.train.train import make_train_step
+
+    t = cfg.train
+    dev = k_cam.device
+    batcher = TrainBatcher(LM6DDataset(cfg.dataset.root, names), names, t.batch_size,
+                           seed=t.seed, pin_memory=dev.type == "cuda")
+    train_step = make_train_step(model, assets, cfg)
+
+    def step(state, generator: torch.Generator):
+        batch = to_device(batcher.next(), dev)
+        batch["pose_src"] = perturb_poses(
+            generator, batch["pose_tgt"], rot_std_deg=t.rot_noise_deg,
+            rot_max_deg=t.rot_noise_max_deg, trans_std=tuple(t.trans_noise),
+            trans_max=tuple(t.trans_noise_max))
+        batch["k"] = k_cam.expand(batch["pose_tgt"].shape[0], 3, 3).contiguous()
+        return train_step(state, batch)
+
+    step.batcher = batcher
+    return step
+
+
 def main(argv=None) -> int:
     from deepim_tpu_torch.config import save_config, update_config
     from deepim_tpu_torch.raster.camera import make_intrinsics
@@ -139,10 +186,6 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed),
                                   experiment=f"{cfg.experiment}_seed{args.seed}")
     d, t = cfg.dataset, cfg.train
-    if d.name.startswith("lm6d") or d.name == "ycb":
-        raise NotImplementedError(
-            f"dataset.name={d.name!r}: on-disk training (TrainBatcher, syn_fraction) "
-            "is not ported yet (ROADMAP A13)")
     dev = _device(args.device)
     out_dir = os.path.join(cfg.output_dir, cfg.experiment)
     ckpt_dir = checkpoint_dir(cfg)
@@ -150,7 +193,7 @@ def main(argv=None) -> int:
     save_config(cfg, os.path.join(out_dir, "config.yaml"))
     print(f"device: {dev} ({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'})")
 
-    assets, _, _ = load_assets_and_names(cfg, device=dev)
+    assets, names, _ = load_assets_and_names(cfg, device=dev)
     model = make_model(cfg, assets.num_classes,
                        generator=torch.Generator().manual_seed(t.seed)).to(dev)
     state = init_state(cfg, model)
@@ -183,13 +226,21 @@ def main(argv=None) -> int:
             input_width=n.coarse_width or n.input_width // 2))
         syn_step_coarse = make_synthetic_train_step(model, assets, cfg_c, k_cam)
 
+    disk_step = None
+    if on_disk(d.name):
+        disk_step = make_disk_step(model, assets, cfg, names, k_cam)
+        print(f"on-disk training: {disk_step.batcher.num_records} frames, "
+              f"syn_fraction={t.syn_fraction}")
+
     generator = torch.Generator(device=dev)
     t_last = time.time()
     log_path = os.path.join(out_dir, "train_log.jsonl")
     with open(log_path, "a") as logf:
         for it in range(state.step, t.num_steps):
             generator.manual_seed((t.seed + 1) * 1_000_003 + it)
-            if syn_step_coarse is not None and frac_hit(t.coarse_fraction, it):
+            if disk_step is not None and not frac_hit(t.syn_fraction, it):
+                _, metrics = disk_step(state, generator)
+            elif syn_step_coarse is not None and frac_hit(t.coarse_fraction, it):
                 _, metrics = syn_step_coarse(state, generator)
             else:
                 _, metrics = syn_step(state, generator)

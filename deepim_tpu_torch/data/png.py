@@ -1,32 +1,51 @@
-"""PNG reading and writing with the standard library's ``zlib`` and numpy.
+"""PNG reading and writing with the standard library's ``zlib``, numpy and
+a small C++ row unfilter.
 
 The port's image IO.  The reference writes PNGs with PIL and reads them with
-its native decoder or PIL (``deepim_tpu/data/lm6d.py:137-148``); the port
-depends on neither (the card's machine is not promised PIL) and carries
-its own codec for the three image types the datasets use:
+its native decoder or PIL (``deepim_tpu/data/lm6d.py:137-148`` ->
+``native/src/deepim_native.cpp §dn_decode_png``); the port depends on
+neither (the card's machine is not promised PIL) and carries its own codec
+for the three image types the datasets use:
 
 - 8-bit RGB (colour frames), 8-bit grey (label maps),
 - 16-bit grey, big-endian (depth in metres x 1,000).
 
 :func:`write_png` writes every row with filter 0 (None).  :func:`read_png`
 reads all five row filters: PIL picks Sub, Up and Paeth per row, and other
-encoders use Average.  None, Sub and Up are whole-row numpy operations;
-Average and Paeth depend on the pixel to their left and are undone one
-row at a time in a Python loop, which is slow on large images written by
-others (reading real datasets fast is left to the loaders that need it).
-Interlaced, palette and alpha images raise ``ValueError``.
+encoders use Average.  ``zlib`` inflates; ``csrc/png_unfilter.cpp`` undoes
+the row filters (and swaps 16-bit samples to host order).  It is built at
+first use with ``g++ -O3 -shared -fPIC`` into ``deepim_tpu_torch/_build/``
+under a name keyed by the hash of its source and flags, and bound with
+``ctypes``, so a call runs without the GIL and a thread pool decodes frames
+in parallel.  A failed build raises, naming the compiler's output; there is
+no fallback.  :func:`unfilter_plain`, the same unfiltering as a Python row
+loop, is the plain version the tests hold the C++ one to.  Interlaced,
+palette and alpha images raise ``ValueError``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
+import os
 import struct
+import subprocess
+import tempfile
+import threading
 import zlib
+from pathlib import Path
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _GREY, _RGB = 0, 2
 _CHANNELS = {_GREY: 1, _RGB: 3}
+
+UNFILTER_SRC = Path(__file__).resolve().parent / "csrc" / "png_unfilter.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_lock = threading.Lock()
+_unfilter_fn = None
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -80,8 +99,9 @@ def _average_row(cur: bytearray, prior: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + ((a + prior[i]) >> 1)) & 0xFF
 
 
-def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters of ``raw`` ((h, 1 + row_bytes) uint8)."""
+def unfilter_plain(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters of ``raw`` ((h, 1 + row_bytes) uint8) in
+    Python rows: the plain version of the C++ unfilter."""
     kinds = raw[:, 0]
     if kinds.max(initial=0) > 4:
         raise ValueError(f"bad PNG row filter {int(kinds.max())}")
@@ -105,16 +125,74 @@ def _unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndarray:
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def build_unfilter() -> Path:
+    """Compile ``csrc/png_unfilter.cpp`` into ``_build/`` unless this exact
+    build exists -> the shared library.  Concurrent builders (test workers)
+    each compile into a temporary directory and rename atomically."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + UNFILTER_SRC.read_bytes())
+    out = BUILD_DIR / f"libdeepim_png_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX", "g++")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        so = f"{tmp}/lib.so"
+        try:
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", so, str(UNFILTER_SRC)],
+                                  capture_output=True, text=True)
+        except OSError as e:
+            raise RuntimeError(f"cannot run the C++ compiler {cxx!r} to build "
+                               f"{UNFILTER_SRC.name}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"{cxx} failed ({proc.returncode}) building "
+                               f"{UNFILTER_SRC.name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(so, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def _unfilter_lib():
+    global _unfilter_fn
+    with _lock:
+        if _unfilter_fn is None:
+            fn = ctypes.CDLL(str(build_unfilter())).deepim_png_unfilter
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+                           ctypes.c_int32, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _unfilter_fn = fn
+        return _unfilter_fn
+
+
+def unfilter(raw: np.ndarray, h: int, row_bytes: int, bpp: int,
+             swap16: bool = False) -> np.ndarray:
+    """Undo the per-row filters of ``raw`` ((h, 1 + row_bytes) uint8) with
+    the C++ unfilter -> (h, row_bytes) uint8; ``swap16`` swaps each byte
+    pair afterwards (big-endian 16-bit samples to host order)."""
+    fn = _unfilter_lib()
+    raw = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((h, row_bytes), np.uint8)
+    code = fn(raw.ctypes.data, h, row_bytes, bpp, int(swap16), out.ctypes.data)
+    if code:
+        y = -code - 1
+        raise ValueError(f"bad PNG row filter {int(raw.reshape(h, -1)[y, 0])} in row {y}")
+    return out
+
+
+def decode_png(data: bytes, plain: bool = False) -> np.ndarray:
     """PNG bytes -> uint8 (H, W, 3) or (H, W), or uint16 (H, W) for 16-bit
-    grey."""
+    grey.  ``plain`` unfilters with :func:`unfilter_plain` (for the tests
+    and timings that hold the C++ unfilter to it)."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
+    # Slices of a memoryview copy nothing, and zlib inflates into a buffer
+    # of the exact size: what a decoding thread does holding the GIL is
+    # kept short, since the GIL is what the thread launching the
+    # refinement's kernels waits for.
+    view = memoryview(data)
     pos, header, idat = 8, None, []
     while pos + 8 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + n]
+        (n,) = struct.unpack(">I", view[pos:pos + 4])
+        kind = bytes(view[pos + 4:pos + 8])
+        body = view[pos + 8:pos + 8 + n]
         pos += 12 + n
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
@@ -131,13 +209,32 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError("interlaced PNG is not supported")
     bpp = _CHANNELS[colour] * depth // 8
     row_bytes = w * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    try:
+        stream = idat[0] if len(idat) == 1 else b"".join(idat)
+        raw = np.frombuffer(zlib.decompress(stream, bufsize=h * (row_bytes + 1)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"corrupt or truncated PNG image data: {e}") from e
     if raw.size != h * (row_bytes + 1):
         raise ValueError("PNG image data has the wrong size")
-    rows = _unfilter(raw.reshape(h, row_bytes + 1), h, row_bytes, bpp)
+    if plain:
+        rows = unfilter_plain(raw.reshape(h, row_bytes + 1), h, row_bytes, bpp)
+        if depth == 16:
+            return rows.view(">u2").astype(np.uint16).reshape(h, w)
+    else:
+        rows = unfilter(raw, h, row_bytes, bpp, swap16=depth == 16 and np.little_endian)
     if depth == 16:
-        return rows.view(">u2").astype(np.uint16).reshape(h, w)
+        return rows.view(np.uint16).reshape(h, w)
     return rows.reshape(h, w, 3) if colour == _RGB else rows.reshape(h, w)
+
+
+def read_size(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG file, from its IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"not a PNG file: {path}")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 def read_png(path: str) -> np.ndarray:

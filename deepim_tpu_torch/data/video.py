@@ -26,10 +26,15 @@ directory holds what it asks for (:func:`video_manifest`,
 and one batched depth render of the objects for the label, the kernels on
 the card and their plain versions on the CPU.
 
-The keyframe protocol (``keyframes``, ``keyframe_records``,
-``iter_keyframe_batches``, ``apply_posecnn_mat_init``) and
-``convert_ycb_original`` read recorded YCB data and are not ported yet
-(ROADMAP A13, second half).
+The YCB-Video keyframe protocol is here too: ``video_sets/keyframe.txt``
+(``keyframes``, ``write_keyframes``), a keyframe's images decoded once for
+all of its objects (``load_frame_raw``, ``frame_mask``, ``load_keyframe``),
+``keyframe_records``, ``iter_keyframe_batches`` (the keyframe counterpart
+of :func:`~deepim_tpu_torch.data.lm6d.iter_frame_batches`: host slots,
+:func:`~deepim_tpu_torch.data.lm6d.to_device`) and the PoseCNN ``.mat``
+import ``apply_posecnn_mat_init`` (``scipy.io.loadmat``).
+``convert_ycb_original``, the converter of the original YCB-Video
+release, is not ported yet (ROADMAP A13.2).
 """
 
 from __future__ import annotations
@@ -37,12 +42,14 @@ from __future__ import annotations
 import json
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
-from deepim_tpu_torch.data.lm6d import DEPTH_FACTOR, LM6DDataset
-from deepim_tpu_torch.data.png import write_png
+from deepim_tpu_torch.data.lm6d import (
+    DEPTH_FACTOR, FrameRecord, HostSlots, LM6DDataset, thread_pool, stack_frames)
+from deepim_tpu_torch.data.png import read_png, read_size, write_png
 
 MANIFEST = "gen_params.json"
 
@@ -114,6 +121,58 @@ class VideoDataset:
             "class_idx": np.asarray([self.class_to_idx[o] for o in objs], np.int32),
             "objects": objs,
         }
+
+    # -- the keyframe protocol (YCB-Video's evaluation) ----------------------
+
+    def keyframes(self) -> list[tuple[str, str]]:
+        """The keyframe test list ``video_sets/keyframe.txt`` (lines
+        ``{seq}/{frame}``): YCB-Video evaluates these frames, batched per
+        keyframe, not by tracking."""
+        with open(os.path.join(self.root, "video_sets", "keyframe.txt")) as f:
+            return [tuple(ln.strip().split("/")) for ln in f if ln.strip()]
+
+    def has_keyframes(self) -> bool:
+        return os.path.exists(os.path.join(self.root, "video_sets", "keyframe.txt"))
+
+    def write_keyframes(self, pairs: list[tuple[str, str]]) -> None:
+        os.makedirs(os.path.join(self.root, "video_sets"), exist_ok=True)
+        with open(os.path.join(self.root, "video_sets", "keyframe.txt"), "w") as f:
+            for seq, fid in pairs:
+                f.write(f"{seq}/{fid}\n")
+
+    def load_frame_samples(self, seq: str, frame: str):
+        """One frame's PNG samples, decoded once: RGB uint8, depth uint16
+        (zeros without a depth image) and the label (None without one)."""
+        rgb = read_png(self._vid(seq, frame, "color.png"))
+        dpath = self._vid(seq, frame, "depth.png")
+        depth = read_png(dpath) if os.path.exists(dpath) else np.zeros(rgb.shape[:2], np.uint16)
+        lpath = self._vid(seq, frame, "label.png")
+        return rgb, depth, read_png(lpath) if os.path.exists(lpath) else None
+
+    def load_frame_raw(self, seq: str, frame: str) -> dict:
+        """One frame's shared images (RGB in [0, 1], metric depth, the raw
+        label or None), decoded once for all of its objects."""
+        rgb, depth, label = self.load_frame_samples(seq, frame)
+        return {"obs_rgb": rgb.astype(np.float32) / 255.0,
+                "obs_depth": depth.astype(np.float32) / DEPTH_FACTOR, "label": label}
+
+    def frame_mask(self, raw: dict, seq: str, obj: str) -> np.ndarray:
+        """One object's mask from a :meth:`load_frame_raw` dict: label
+        pixels of 1 + its slot in ``{seq}_objects.txt``, else depth > 0."""
+        if raw["label"] is not None:
+            return raw["label"] == (self.objects_in(seq).index(obj) + 1)
+        return raw["obs_depth"] > 0
+
+    def load_keyframe(self, seq: str, frame: str, obj: str) -> dict:
+        """One keyframe's observation of one object (RGB in [0, 1], metric
+        depth, the object's mask)."""
+        raw = self.load_frame_raw(seq, frame)
+        return {"obs_rgb": raw["obs_rgb"], "obs_depth": raw["obs_depth"],
+                "obs_mask": self.frame_mask(raw, seq, obj)}
+
+    def keyframe_pose(self, seq: str, frame: str, obj: str) -> np.ndarray:
+        return np.loadtxt(self._vid(seq, frame, f"pose_{obj}.txt"),
+                          dtype=np.float32).reshape(3, 4)
 
     def write_sequence(self, seq: str, frame_ids: list[str], objs: list[str],
                        rgbs: np.ndarray, depths: np.ndarray, poses: np.ndarray,
@@ -323,3 +382,105 @@ def _render_frame(assets, cls: torch.Tensor, poses: torch.Tensor, k: torch.Tenso
     hit = (deps > 0).any(0)
     label = torch.where(hit, big.argmin(0).to(torch.int32) + 1, 0)
     return rgb[0], depth[0], label
+
+
+def keyframe_records(ds: VideoDataset) -> list[FrameRecord]:
+    """One record per (keyframe, object of its sequence), in keyframe
+    order (scene = the sequence; ``init_pose`` None, filled downstream)."""
+    records = []
+    objs: dict[str, list[str]] = {}
+    for seq, fid in ds.keyframes():
+        if seq not in objs:
+            objs[seq] = ds.objects_in(seq)
+        for obj in objs[seq]:
+            records.append(FrameRecord(scene=seq, frame=fid, obj=obj,
+                                       class_idx=ds.class_to_idx[obj],
+                                       pose=ds.keyframe_pose(seq, fid, obj), init_pose=None))
+    return records
+
+
+def iter_keyframe_batches(ds: VideoDataset, records, batch_size: int, pad_to: int | None = None,
+                          pin_memory: bool | None = None, num_threads: int = 4,
+                          extra: dict[str, np.ndarray] | None = None):
+    """Keyframe batches of exactly ``batch_size`` records, as
+    :func:`~deepim_tpu_torch.data.lm6d.iter_frame_batches` yields them.
+    Each keyframe of a batch is decoded once, on the decode pool, and each
+    of its records cuts its own mask from the shared label."""
+    from deepim_tpu_torch.data.lm6d import _pin_default
+
+    n = pad_to or len(records)
+    if n % batch_size:
+        raise ValueError(f"pad_to={n} is not a multiple of the batch size {batch_size}")
+    recs = list(records) + [records[-1]] * (n - len(records))
+    slots = HostSlots(_pin_default(pin_memory))
+    pool = thread_pool(num_threads)
+    size = read_size(ds._vid(recs[0].scene, recs[0].frame, "color.png"))
+    slot_of = {}  # (seq, obj) -> the object's label value
+    for r in recs:
+        if (r.scene, r.obj) not in slot_of:
+            slot_of[(r.scene, r.obj)] = ds.objects_in(r.scene).index(r.obj) + 1
+
+    def cut(decoded, r):
+        rgb, depth, label = decoded[(r.scene, r.frame)]
+        return rgb, depth, (label == slot_of[(r.scene, r.obj)] if label is not None
+                            else depth > 0)
+
+    for i in range(0, n, batch_size):
+        batch = recs[i:i + batch_size]
+        keys = list(dict.fromkeys((r.scene, r.frame) for r in batch))
+        decoded = dict(zip(keys, pool.map(lambda k: ds.load_frame_samples(*k), keys)))
+        yield stack_frames(slots, pool, [partial(cut, decoded, r) for r in batch], size,
+                           {k: v[i:i + batch_size] for k, v in (extra or {}).items()})
+
+
+def _quat_to_mat_np(q: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) quaternion, normalised -> (3, 3) rotation (numpy)."""
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.asarray([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ], np.float32)
+
+
+def apply_posecnn_mat_init(records, init: np.ndarray, results_dir: str,
+                           obj_ids: list[int] | None = None, pose_key: str = "poses") -> int:
+    """PoseCNN's released per-keyframe results as init poses -> the match
+    count; ``init`` is changed in place.
+
+    One MATLAB file per keyframe, named by its 0-based line in
+    keyframe.txt (``000000.mat``, ...), with ``rois`` (column 1: the
+    1-based class id of each detection) and ``poses`` (per detection: wxyz
+    quaternion, then txyz).  ``records`` are :func:`keyframe_records` rows
+    in order; ``obj_ids`` maps ``class_idx`` to the release's class ids
+    (default ``class_idx + 1``).  The first detection of a class wins.
+    """
+    from scipy.io import loadmat
+
+    kf_index: dict[tuple[str, str], int] = {}
+    for r in records:
+        kf_index.setdefault((r.scene, r.frame), len(kf_index))
+    matched = 0
+    cache: dict[int, tuple[np.ndarray, np.ndarray] | None] = {}
+    for i, rec in enumerate(records):
+        ki = kf_index[(rec.scene, rec.frame)]
+        if ki not in cache:
+            path = os.path.join(results_dir, f"{ki:06d}.mat")
+            if os.path.exists(path):
+                m = loadmat(path)
+                cache[ki] = (np.atleast_2d(np.asarray(m["rois"])),
+                             np.atleast_2d(np.asarray(m[pose_key])))
+            else:
+                cache[ki] = None
+        if cache[ki] is None:
+            continue
+        rois, poses = cache[ki]
+        want = obj_ids[rec.class_idx] if obj_ids else rec.class_idx + 1
+        rows = np.nonzero(rois[:, 1].astype(int) == int(want))[0]
+        if rows.size == 0:
+            continue
+        p = np.asarray(poses[rows[0]], np.float32).reshape(-1)
+        init[i, :, :3] = _quat_to_mat_np(p[:4])
+        init[i, :, 3] = p[4:7]
+        matched += 1
+    return matched

@@ -10,15 +10,16 @@ builder (``box_mesh``, ``icosphere_mesh``, ``cylinder_mesh``,
 ``PROCEDURAL_MESHES``, ``ZOO_FAMILIES`` and ``random_mesh_zoo``,
 ``pad_mesh``, ``decimate_mesh``, ``sample_points`` and ``cull_direction``,
 and the texture helpers ``procedural_texture``, ``planar_uv``,
-``texturize`` and ``bake_texture_to_vertices``; and the PLY reader's
-Python path with the writer (``load_ply``, ``save_ply``), its texture
-image read through :mod:`deepim_tpu_torch.data.png`.  The OBJ/OFF loaders
-are not copied yet.
+``texturize`` and ``bake_texture_to_vertices``; and the mesh readers'
+Python paths: ``load_ply`` with the writer ``save_ply``, ``load_obj``
+(with ``_parse_mtl``), ``load_off``, ``normalize_mesh`` and ``load_mesh``,
+their texture images read through :mod:`deepim_tpu_torch.data.png`.
 
 A copy and not an import: ``deepim_tpu/raster/__init__.py`` imports jax.
 The reference routes meshes of 20,000+ faces to a C++ helper for vertex
-normals and decimation; this copy always runs the numpy path, which is
-that helper's oracle.  ``tests/test_torch_assets.py`` holds the copy
+normals and decimation, and parses PLY and single-material OBJ files
+with it; this copy always runs the Python path, which is that helper's
+oracle.  ``tests/test_torch_assets.py`` holds the copy
 bit-identical to the reference.
 """
 
@@ -1025,3 +1026,235 @@ def save_ply(path: str, mesh: Mesh) -> None:
             f.write(f"{v[0]} {v[1]} {v[2]} {r} {g} {b}\n")
         for face in mesh.faces:
             f.write(f"3 {face[0]} {face[1]} {face[2]}\n")
+
+
+# ---------------------------------------------------------------------------
+# OBJ (+ MTL and texture) and OFF IO (``deepim_tpu/raster/mesh.py
+# §_parse_mtl, §load_obj, §load_off, §normalize_mesh, §load_mesh``): YCB
+# ships textured.obj beside textured.ply, ModelNet .off CAD files.  The
+# reference parses single-material OBJs with its native C++ helper where
+# it is built; this is its Python path, the helper's oracle.
+# ---------------------------------------------------------------------------
+
+
+def _read_rgb(path: str) -> np.ndarray:
+    """A texture map as uint8 (H, W, 3) (grey maps repeat their channel)."""
+    from deepim_tpu_torch.data.png import read_png
+
+    img = read_png(path)
+    if img.dtype != np.uint8:
+        raise ValueError(f"{path}: a texture map must be an 8-bit image")
+    return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
+
+
+def _parse_mtl(path: str) -> dict[str, dict]:
+    """Wavefront MTL -> {material: {"kd": (3,) float32, "map_kd": path or None}}."""
+    mats: dict[str, dict] = {}
+    cur = None
+    with open(path, errors="replace") as f:
+        for line in f:
+            parts = line.split()
+            if not parts or parts[0].startswith("#"):
+                continue
+            if parts[0] == "newmtl":
+                cur = parts[1] if len(parts) > 1 else ""
+                mats[cur] = {"kd": np.array([0.7, 0.7, 0.7], np.float32), "map_kd": None}
+            elif cur is not None and parts[0] == "Kd" and len(parts) >= 4:
+                mats[cur]["kd"] = np.asarray(parts[1:4], np.float32)
+            elif cur is not None and parts[0].lower() == "map_kd":
+                # the file name may hold spaces: everything after the key
+                rel = line.split(None, 1)[1].strip()
+                cand = os.path.join(os.path.dirname(path), rel)
+                mats[cur]["map_kd"] = cand if os.path.exists(cand) else None
+    return mats
+
+
+def load_obj(path: str) -> Mesh:
+    """Wavefront .obj: v/vt/f, with MTL diffuse colours and texture maps.
+
+    Faces are fan-triangulated; (vertex, uv) corner pairs are deduplicated
+    into one vertex array, so UVs live per vertex.  Colours: the
+    ``v x y z r g b`` extension, else the texture baked to the vertices,
+    else each material's Kd, else grey 0.7.  The uv and texture arrays stay
+    on the mesh when exactly one texture map is used.  Negative (relative)
+    indices are honoured.
+    """
+    positions: list[list[float]] = []
+    vcolors: list[list[float]] = []
+    uvs: list[list[float]] = []
+    faces_raw: list[tuple[list[int], list[int | None], str | None]] = []
+    mtl: dict[str, dict] = {}
+    cur_mat: str | None = None
+
+    def _vidx(tok: str, n: int) -> int:
+        i = int(tok)
+        return i - 1 if i > 0 else n + i
+
+    with open(path, errors="replace") as f:
+        for line in f:
+            parts = line.split()
+            if not parts or parts[0].startswith("#"):
+                continue
+            key = parts[0]
+            if key == "v":
+                positions.append([float(x) for x in parts[1:4]])
+                if len(parts) >= 7:
+                    vcolors.append([float(x) for x in parts[4:7]])
+            elif key == "vt":
+                uvs.append([float(parts[1]), float(parts[2]) if len(parts) > 2 else 0.0])
+            elif key == "f":
+                vi, ti = [], []
+                for tok in parts[1:]:
+                    comps = tok.split("/")
+                    vi.append(_vidx(comps[0], len(positions)))
+                    ti.append(_vidx(comps[1], len(uvs)) if len(comps) > 1 and comps[1] else None)
+                faces_raw.append((vi, ti, cur_mat))
+            elif key == "mtllib" and len(parts) > 1:
+                mpath = os.path.join(os.path.dirname(path), line.split(None, 1)[1].strip())
+                if os.path.exists(mpath):
+                    mtl.update(_parse_mtl(mpath))
+            elif key == "usemtl":
+                cur_mat = parts[1] if len(parts) > 1 else None
+
+    if not positions:
+        raise ValueError(f"OBJ has no vertices: {path}")
+    pos = np.asarray(positions, np.float32)
+    uv_arr = np.asarray(uvs, np.float32) if uvs else None
+
+    # Unify (position, uv) corner pairs -> per-vertex UVs.
+    has_uv = uv_arr is not None and any(t is not None for _, ti, _ in faces_raw for t in ti)
+    corner_map: dict[tuple[int, int], int] = {}
+    out_pos: list[np.ndarray] = []
+    out_uv: list[np.ndarray] = []
+    out_src: list[int] = []  # the original vertex of each corner (its colour)
+    tris: list[tuple[int, int, int]] = []
+    tri_mat: list[str | None] = []
+
+    def _corner(v: int, t: int | None) -> int:
+        if not has_uv:
+            return v
+        key = (v, -1 if t is None else t)
+        idx = corner_map.get(key)
+        if idx is None:
+            idx = len(out_pos)
+            corner_map[key] = idx
+            out_pos.append(pos[v])
+            out_uv.append(uv_arr[t] if t is not None else np.zeros(2, np.float32))
+            out_src.append(v)
+        return idx
+
+    for vi, ti, mat in faces_raw:
+        corners = [_corner(v, t) for v, t in zip(vi, ti)]
+        for k in range(1, len(corners) - 1):
+            tris.append((corners[0], corners[k], corners[k + 1]))
+            tri_mat.append(mat)
+
+    faces = np.asarray(tris, np.int32).reshape(-1, 3)
+    if has_uv:
+        vertices, uv_final, src = np.stack(out_pos), np.stack(out_uv), np.asarray(out_src)
+    else:
+        vertices, uv_final, src = pos, None, np.arange(len(pos))
+
+    if vcolors and len(vcolors) == len(positions):
+        colors = np.asarray(vcolors, np.float32)[src]
+        if colors.max() > 1.5:
+            colors = colors / 255.0
+    else:
+        colors = np.full((len(vertices), 3), 0.7, np.float32)
+
+    tex_paths = sorted({m["map_kd"] for m in mtl.values() if m.get("map_kd")})
+    texture = None
+    if tex_paths and uv_final is not None:
+        # Bake every map onto its material's vertices; keep the texture
+        # on the mesh only when there is one map (one atlas slot an object).
+        for tp in tex_paths:
+            img = _read_rgb(tp)
+            mat_names = {n for n, m in mtl.items() if m.get("map_kd") == tp}
+            baked = bake_texture_to_vertices(uv_final, img)
+            verts_of = np.unique(faces[np.asarray([m in mat_names for m in tri_mat], bool)])
+            colors[verts_of] = baked[verts_of]
+        if len(tex_paths) == 1:
+            texture = _read_rgb(tex_paths[0]).astype(np.float32) / 255.0
+    elif mtl and not vcolors:
+        for name, m in mtl.items():
+            verts_of = (np.unique(faces[np.asarray([mm == name for mm in tri_mat], bool)])
+                        if any(mm == name for mm in tri_mat) else np.arange(0))
+            colors[verts_of] = m["kd"]
+
+    mesh = make_mesh(vertices, faces, colors)
+    if texture is not None:
+        mesh = Mesh(mesh.vertices, mesh.faces, mesh.colors, mesh.normals, uv=uv_final,
+                    texture=texture)
+    return mesh
+
+
+def load_off(path: str) -> Mesh:
+    """OFF/COFF (ModelNet CAD files): counts glued to the magic
+    (``OFF490 430 980``), vertex colours (COFF) and per-face trailing
+    colours (scattered onto the face's vertices); faces fan-triangulated."""
+    with open(path, errors="replace") as f:
+        lines: list[list[str]] = []
+        magic = None
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            if magic is None:
+                for m in ("COFF", "OFF"):
+                    if line.upper().startswith(m):
+                        magic = m
+                        line = line[len(m):].strip()  # the glued-counts quirk
+                        break
+                else:
+                    raise ValueError(f"not an OFF file: {path}")
+                if not line:
+                    continue
+            lines.append(line.split())
+    if magic is None or not lines:
+        raise ValueError(f"truncated OFF file: {path}")
+    nv, nf = int(lines[0][0]), int(lines[0][1])
+    if len(lines) < 1 + nv + nf:
+        raise ValueError(f"truncated OFF file: {path} ({len(lines) - 1} rows, need {nv + nf})")
+    vdata = np.asarray(lines[1:1 + nv], np.float64)
+    vertices = vdata[:, :3].astype(np.float32)
+    colors = None
+    if magic == "COFF" and vdata.shape[1] >= 6:
+        colors = vdata[:, 3:6].astype(np.float32)
+        if colors.max() > 1.5:
+            colors = colors / 255.0
+    tris: list[tuple[int, int, int]] = []
+    face_color: np.ndarray | None = None
+    for row in lines[1 + nv:1 + nv + nf]:
+        cnt = int(row[0])
+        idx = [int(t) for t in row[1:1 + cnt]]
+        trailing = row[1 + cnt:]
+        if len(trailing) >= 3 and colors is None:
+            fc = np.asarray(trailing[:3], np.float32)
+            if fc.max() > 1.5:
+                fc = fc / 255.0
+            if face_color is None:
+                face_color = np.full((nv, 3), 0.7, np.float32)
+            face_color[idx] = fc
+        for k in range(1, cnt - 1):
+            tris.append((idx[0], idx[k], idx[k + 1]))
+    faces = np.asarray(tris, np.int32).reshape(-1, 3)
+    return make_mesh(vertices, faces, colors if colors is not None else face_color)
+
+
+def normalize_mesh(mesh: Mesh, diameter: float = 0.15) -> Mesh:
+    """Centred on its bounding box and scaled to ``diameter`` metres (CAD
+    files are unitless and placed anywhere)."""
+    v = mesh.vertices
+    v = v - (v.max(0) + v.min(0)) / 2.0
+    scale = diameter / max(mesh.diameter, 1e-12)
+    return Mesh((v * scale).astype(np.float32), mesh.faces, mesh.colors, mesh.normals,
+                uv=mesh.uv, texture=mesh.texture)
+
+
+def load_mesh(path: str) -> Mesh:
+    """The loader of ``path``'s suffix: .ply, .obj (+ MTL) or .off."""
+    ext = os.path.splitext(path)[1].lower()
+    loader = {".ply": load_ply, ".obj": load_obj, ".off": load_off}.get(ext)
+    if loader is None:
+        raise ValueError(f"unsupported mesh format {ext!r}: {path}")
+    return loader(path)

@@ -275,12 +275,46 @@ def test_load_assets_and_names_match(yaml_name, eval_set):
     {"dataset": {"name": "ycb", "objects": ["bowl"]}},
     {"dataset": {"name": "modelnet", "cad_dir": "meshes", "eval_objects": ["torus"]}},
 ])
-def test_load_assets_from_disk_is_not_ported(overrides):
-    from deepim_tpu_torch.cli.train import load_assets_and_names
+def test_load_assets_from_disk_is_not_ported(overrides, tmp_path, monkeypatch):
+    """Meshes read from disk (once not ported, now the loaders' path):
+    ``models/ape/textured.ply``, ``models/bowl/textured.obj`` with an MTL
+    colour, a ModelNet ``cad_dir`` of an .off and an .obj file (normalised,
+    decimated), each loaded by both packages into equal assets, the
+    reference on its Python parsers."""
+    from deepim_tpu import native
+    from deepim_tpu.cli.train import load_assets_and_names as load_j
+    from deepim_tpu.config import config_from_dict as config_j
+    from deepim_tpu_torch.cli.train import load_assets_and_names as load_t
     from deepim_tpu_torch.config import config_from_dict
 
-    with pytest.raises(NotImplementedError, match="A13"):
-        load_assets_and_names(config_from_dict(overrides), eval_set=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        load_assets_and_names(config_from_dict(
-            {"dataset": {"name": "lm6d"}, "experiment": "lm6d"}), device="cpu")
+    monkeypatch.setattr(native, "available", lambda: False)
+    root = tmp_path / "root"
+    (root / "models" / "ape").mkdir(parents=True)
+    mesh_t.save_ply(str(root / "models" / "ape" / "textured.ply"),
+                    mesh_t.icosphere_mesh(0.04, subdivisions=2))
+    (root / "models" / "bowl").mkdir(parents=True)
+    (root / "models" / "bowl" / "textured.mtl").write_text("newmtl m\nKd 0.2 0.5 0.9\n")
+    box = mesh_t.box_mesh((0.1, 0.08, 0.06))
+    obj = "mtllib textured.mtl\nusemtl m\n" + "".join(
+        f"v {x} {y} {z}\n" for x, y, z in box.vertices) + "".join(
+        f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in box.faces)
+    (root / "models" / "bowl" / "textured.obj").write_text(obj)
+    (root / "meshes").mkdir()
+    (root / "meshes" / "b.obj").write_text(obj.replace("mtllib textured.mtl\n", ""))
+    cyl = mesh_t.cylinder_mesh(segments=12)
+    (root / "meshes" / "a.off").write_text(
+        f"OFF{cyl.num_vertices} {cyl.num_faces} 0\n"
+        + "".join(f"{x * 40} {y * 40} {z * 40 + 3}\n" for x, y, z in cyl.vertices)
+        + "".join(f"3 {a} {b} {c}\n" for a, b, c in cyl.faces))
+    spec = {**overrides, "dataset": {**overrides["dataset"], "root": str(root),
+                                     "max_faces": 64, "num_points": 32}}
+    if "cad_dir" in spec["dataset"]:
+        spec["dataset"]["cad_dir"] = str(root / "meshes")
+    for eval_set in (True, False):
+        at, names_t, sym_t_ = load_t(config_from_dict(spec), eval_set=eval_set, device="cpu")
+        aj, names_j, sym_j_ = load_j(config_j(spec), eval_set=eval_set)
+        assert names_t == names_j and sym_t_ == sym_j_
+        _assert_assets_equal(at, aj)
+        if eval_set:
+            assert names_t == {"lm6d": ["ape"], "ycb": ["bowl"], "modelnet": ["a", "b"]}[
+                spec["dataset"]["name"]]

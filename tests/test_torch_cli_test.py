@@ -13,10 +13,11 @@
   1e-6 of the last iterate, ``vis/sample000.png``; the ``--no-refine``
   INIT row equals the refined run's; ``--hypotheses 2`` and the occlusion
   set run; ``--results-out`` records the revision.
-- What raises before any batch is drawn: the on-disk sets (``lm6d``,
-  ``ycb_video``), ``--quant int8``, ``--init-poses`` and ``--posecnn-mat``
-  on generated data, ``cuda:0`` with no card; and an experiment with only
-  orbax steps.
+- What raises before any batch is drawn: an on-disk set without its
+  models (``lm6d``) or without its keyframe list (``ycb_video``),
+  ``--quant int8``, ``--init-poses`` and ``--posecnn-mat`` on generated
+  data, ``cuda:0`` with no card; and an experiment with only orbax steps.
+  (tests/test_torch_disk_cli.py runs the on-disk sets.)
 - ``cli.train_test`` on a tiny config; ``--n-devices 2`` raises.
 """
 
@@ -183,8 +184,16 @@ def test_cli_test_variants_run(tmp_path, capsys, variant):
 @pytest.mark.parametrize("case", ["lm6d", "ycb_video", "quant", "init_poses", "posecnn_mat",
                                   "no_card"])
 def test_cli_test_refuses_before_any_batch(tmp_path, monkeypatch, case):
-    spec = _spec(tmp_path, name={"lm6d": "lm6d", "ycb_video": "ycb_video"}.get(case, "synthetic"))
+    spec = _spec(tmp_path, name={"lm6d": "lm6d", "ycb_video": "ycb_video"}.get(case, "synthetic"),
+                 root=str(tmp_path / "root"))
     path = _write(tmp_path, spec, checkpoint=False)
+    if case == "ycb_video":  # the models, but no keyframe list
+        from deepim_tpu_torch.data.lm6d import LM6DDataset
+        from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+
+        ds = LM6DDataset(str(tmp_path / "root"), ["box", "icosphere"])
+        for obj in ds.objects:
+            ds.write_model(obj, PROCEDURAL_MESHES[obj]())
 
     def no_batch(*a, **kw):
         raise AssertionError("a batch was drawn")
@@ -195,7 +204,8 @@ def test_cli_test_refuses_before_any_batch(tmp_path, monkeypatch, case):
              "posecnn_mat": ["--posecnn-mat", "mats"]}.get(case, [])
     if case == "no_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    error, match = {"lm6d": (NotImplementedError, "A13"), "ycb_video": (NotImplementedError, "A13"),
+    error, match = {"lm6d": (FileNotFoundError, "textured.ply"),
+                    "ycb_video": (SystemExit, "keyframe.txt"),
                     "quant": (NotImplementedError, "A10"), "no_card": (RuntimeError, "no CUDA"),
                     }.get(case, (SystemExit, "on-disk"))
     with pytest.raises(error, match=match):

@@ -3,10 +3,12 @@
 The machine with the card has no jax and no PIL, so the port must import,
 refine, serve, train (the losses, the flow GT, the optimizer, one fused
 synthetic step, a checkpoint round trip), evaluate (the evaluator, PNG
-and BOP files, the eval loop) and generate and read video sequences with
-jax, optax, orbax, PyYAML and PIL blocked; no source file of the port may
-import jax, flax, orbax, PIL or the reference, and none may import yaml
-when it is imported.
+and BOP files, the eval loop), generate and read video sequences, and
+generate and read an on-disk LM6d root (the toolkit, the C++ PNG unfilter,
+the streamed batches, ``TrainBatcher``, an OBJ model) with jax, optax,
+orbax, PyYAML and PIL blocked; no source file of the port may import jax,
+flax, orbax, PIL or the reference, none may import yaml when it is
+imported, and none names the reference's native library.
 """
 
 import os
@@ -111,6 +113,20 @@ with tempfile.TemporaryDirectory() as d:
     ds = gen_video(d + "/v", {"box": PROCEDURAL_MESHES["box"]()}, k.numpy(), (32, 48),
                    num_frames=2, device="cpu")
     assert ds.load_sequence("0000")["frames"].shape == (2, 32, 48, 3)
+from deepim_tpu_torch.data import lm6d, toolkit
+from deepim_tpu_torch.raster.mesh import load_mesh
+with tempfile.TemporaryDirectory() as d:
+    root = toolkit.gen_procedural_dataset(d + "/lm6d", ["box", "icosphere"], k.numpy(), (24, 32),
+                                          frames_per_obj=3, device="cpu").root
+    ds = lm6d.LM6DDataset(root, ["box", "icosphere"])
+    recs = ds.gt_roidb("box", "test") + ds.gt_roidb("icosphere", "test")
+    (b,) = [lm6d.to_device(x, "cpu") for x in lm6d.prefetch_iter(
+        lm6d.iter_frame_batches(ds, recs, 2, pin_memory=False))]
+    assert b["obs_rgb"].dtype == torch.float32 and b["obs_rgb"].shape == (2, 24, 32, 3)
+    assert lm6d.TrainBatcher(ds, ["box"], 2, pin_memory=False).next()["obs_mask"].any()
+    with open(d + "/m.obj", "w") as f:
+        f.write("v 0 0 0\nv 0.1 0 0\nv 0 0.1 0\nf 1 2 3\n")
+    assert load_mesh(d + "/m.obj").num_faces == 1
 try:
     from deepim_tpu_torch.config import update_config
     update_config("experiments/cfgs/synthetic_all.yaml")
@@ -141,6 +157,13 @@ def test_no_source_imports_jax_or_the_reference():
     assert len(files) >= 30
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if bad.search(p.read_text()) or top_level_yaml.search(p.read_text())]
+    assert not offenders, offenders
+
+
+def test_no_source_names_the_reference_native_library():
+    files = sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cpp"))
+    offenders = [str(p.relative_to(ROOT)) for p in files
+                 if re.search(r"deepim_tpu\.native|native/build|libdeepim_native", p.read_text())]
     assert not offenders, offenders
 
 

@@ -8,16 +8,25 @@
   five filters; PIL and the port read them alike.
 - The viz helpers equal the reference's, and ``save_image`` writes what
   PIL reads back.
+- The C++ row unfilter (``csrc/png_unfilter.cpp``) against the Python rows
+  (``unfilter_plain``) and the reference's native decoder
+  (``deepim_tpu.native.decode_png``): every filter, mixed per row, RGB,
+  grey and 16-bit, odd widths, random rows of every filter and pixel size;
+  bit for bit.  A bad filter byte and a truncated stream raise; a failed
+  build raises with the compiler's output (there is no fallback);
+  concurrent builders agree on one library.
 """
 
 import io
 import struct
+import threading
 import zlib
 
 import numpy as np
 import pytest
 from PIL import Image
 
+from deepim_tpu import native
 from deepim_tpu.utils import viz as viz_j
 from deepim_tpu_torch.data import png
 from deepim_tpu_torch.utils import viz as viz_t
@@ -155,3 +164,73 @@ def test_viz_matches_reference(tmp_path):
                                                               viz_j.mask_to_rgb(mask)))
     viz_t.save_image(str(tmp_path / "m.png"), montage)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "m.png")), montage)
+
+
+@pytest.mark.parametrize("kind", ["rgb8", "grey8", "grey16"])
+@pytest.mark.parametrize("width", [1, 7, 33])
+def test_cpp_unfilter_matches_plain_and_reference(kind, width):
+    image = _images(seed=width, h=11, w=width)[kind]
+    for kinds in ((4,), (3,), (0, 1, 2, 3, 4, 4, 3, 2, 1, 0, 2)):
+        data = _encode_filtered(image, kinds)
+        got = png.decode_png(data)
+        assert got.dtype == image.dtype and got.shape == image.shape
+        np.testing.assert_array_equal(got, image)
+        np.testing.assert_array_equal(png.decode_png(data, plain=True), image)
+        np.testing.assert_array_equal(native.decode_png(data), image)
+
+
+@pytest.mark.parametrize("bpp", [1, 2, 3, 6])
+def test_cpp_unfilter_random_rows(bpp):
+    """Random bytes under random filter types: the C++ rows equal the
+    Python rows byte for byte (and, swapped, pair for pair)."""
+    rng = np.random.RandomState(bpp)
+    h, row_bytes = 17, bpp * 13
+    raw = rng.randint(0, 256, (h, row_bytes + 1)).astype(np.uint8)
+    raw[:, 0] = rng.randint(0, 5, h)
+    want = png.unfilter_plain(raw, h, row_bytes, bpp)
+    np.testing.assert_array_equal(png.unfilter(raw, h, row_bytes, bpp), want)
+    if bpp % 2 == 0:
+        swapped = png.unfilter(raw, h, row_bytes, bpp, swap16=True)
+        np.testing.assert_array_equal(swapped.view(np.uint16), want.view(">u2").astype(np.uint16))
+
+
+def test_bad_filter_and_truncated_stream_raise():
+    image = _images(seed=4)["rgb8"]
+    raw = np.zeros((3, 1 + 6), np.uint8)
+    raw[1, 0] = 5
+    with pytest.raises(ValueError, match="bad PNG row filter 5 in row 1"):
+        png.unfilter(raw, 3, 6, 3)
+    data = _encode_filtered(image, (4,))
+    with pytest.raises(ValueError, match="truncated|wrong size"):
+        png.decode_png(data[:len(data) // 2])
+    assert native.decode_png(data[:len(data) // 2]) is None  # the reference fails too
+
+
+def test_failed_build_raises_without_fallback(tmp_path, monkeypatch):
+    monkeypatch.setattr(png, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(png, "_unfilter_fn", None)
+    monkeypatch.setenv("CXX", "false")  # a compiler that always fails
+    with pytest.raises(RuntimeError, match="false failed"):
+        png.decode_png(png.encode_png(_images()["rgb8"]))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    with pytest.raises(RuntimeError, match="cannot run the C\\+\\+ compiler"):
+        png.build_unfilter()
+
+
+def test_concurrent_builds_agree(tmp_path, monkeypatch):
+    monkeypatch.setattr(png, "BUILD_DIR", tmp_path / "build")
+    paths, errors = [], []
+
+    def build():
+        try:
+            paths.append(png.build_unfilter())
+        except Exception as e:  # noqa: BLE001 — collected for the assert
+            errors.append(e)
+
+    threads = [threading.Thread(target=build) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors and len(set(paths)) == 1 and paths[0].exists()
+    assert [p.name for p in (tmp_path / "build").iterdir()] == [paths[0].name]

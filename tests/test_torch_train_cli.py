@@ -8,7 +8,8 @@
 - ``cli.train.main`` on the CPU writes ``train_log.jsonl`` lines that
   ``tools/plot_train.py`` reads and checkpoints; ``--resume`` continues
   them and draws what an uninterrupted run draws; it refuses a missing
-  card, the on-disk datasets and a pretrained dir of orbax steps.
+  card, an on-disk dataset without its models and a pretrained dir of
+  orbax steps (tests/test_torch_disk_cli.py trains on disk).
 - A JAX-trained full tree (decoder included) round-trips through the
   bridge exactly and loads into the training model.
 """
@@ -199,9 +200,9 @@ def test_cli_train_refuses(tmp_path):
     if not torch.cuda.is_available():  # the card is the default: no fallback
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--cfg", str(path)])
-    spec["dataset"]["name"] = "lm6d"
+    spec["dataset"].update(name="lm6d", root=str(tmp_path / "no_root"))
     path.write_text(yaml.safe_dump(spec))
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(FileNotFoundError, match="textured.ply"):
         cli.main(["--cfg", str(path), "--device", "cpu"])
     # A pretrained dir that holds only the reference's orbax steps.
     spec["dataset"]["name"] = "synthetic"
