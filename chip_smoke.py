@@ -154,6 +154,25 @@ Phases, one line each (any failure raises and the script exits nonzero):
    finite losses, the last 5 below the first 5); the YCB-Video keyframe
    protocol with ``--posecnn-mat`` on ``gen_video``'s data (every record
    matched, one decode a keyframe a batch).
+16. Public releases at ``lm6d_all.yaml`` (480x640, test B=16, K=4, bf16): a
+   root generated on the card (16 frames an object) re-laid out by
+   ``tests/test_torch_release_fixtures.py`` as a BOP JSON release (mm,
+   ``depth_scale`` 0.1, ``mask_visib``), a SIXD YAML one, an original
+   LINEMOD one (baseline JPEG frames, ``.dpt`` in mm, ``.tra`` in cm, mm
+   mesh) and an original YCB-Video one (``-meta.mat``, 1-based global ids,
+   ``factor_depth`` 10000, ``keyframe.txt``); the JPEG decoder, C++ against
+   plain, on a 480x640 frame at 4:2:0 and at 4:4:4 with restart markers
+   (ms, arrays equal); each release through ``cli.runbook`` on the card
+   (detect, convert, validate, ``cli.test``: conversion frames/s,
+   validation seconds, no ERROR, poses/s, 4 sorted and 0 cols launches a
+   batch, peak MiB) and its converted root against the generated one
+   (poses within 1e-6 m, labels and RGB equal, depth within 1 mm); a copy
+   of the BOP release in metres stops with exit code 2 naming
+   ``bop-t-meters``; a BOP release of 20,480-face meshes (cols launches);
+   the seed-7 model exported with ``export_mxnet_npz`` through
+   ``--weights``: its table and trajectories equal to the same model
+   loaded directly, and one converted-root batch card against CPU
+   (float32, ``mxnet_pad``, within 1e-5).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -2475,6 +2494,317 @@ def phase_disk(dev, card, rc, counts):
                                  f"{len(decodes)} decodes of {len(vds.keyframes())} keyframes")
 
 
+RELEASE_FRAMES = 16  # generated frames an object, re-laid out as each release
+RELEASE_DENSE_FRAMES = 4  # frames an object of the 20,480-face BOP release
+RELEASE_PARITY_B = 4  # rows of one converted-root batch refined on card and CPU
+RELEASE_JPEG_RESTART = 8  # MCUs a restart interval of the decoder's test frames
+RELEASE_METRES_ERRORS = {"bop-t-meters"}  # what the validator names on a BOP drop in metres
+
+
+def release_yaml(tmp: str, tag: str, **network) -> str:
+    """experiments/cfgs/lm6d_all.yaml with output_dir ``tmp/tag`` (and the
+    network fields of ``network``): the runbook's --cfg -> its path."""
+    import yaml
+
+    spec = yaml.safe_load((ROOT / "experiments" / "cfgs" / "lm6d_all.yaml").read_text())
+    spec["output_dir"] = f"{tmp}/{tag}"
+    spec.setdefault("network", {}).update(network)
+    path = Path(tmp) / f"{tag}.yaml"
+    path.write_text(yaml.safe_dump(spec))
+    return str(path)
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, seconds: dict):
+    """``module.<name>`` of each name wrapped to append each call's wall
+    seconds to ``seconds[name]`` (callers look the name up at call time)."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                seconds.setdefault(n, []).append(time.perf_counter() - t0)
+        return timed
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield seconds
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def phase_releases(dev, card, rc, counts):
+    """Public releases at full width (experiments/cfgs/lm6d_all.yaml: 480x640
+    frames and network input, test B=16, K=4, bf16): a root generated on the
+    card (RELEASE_FRAMES an object, the classes in name order, as the
+    runbook's config lists them) re-laid out by
+    tests/test_torch_release_fixtures.py as a BOP JSON release, a SIXD YAML
+    one, an original LINEMOD one (baseline JPEG frames, .dpt, .rot, .tra in
+    cm, mm mesh) and an original YCB-Video one (-meta.mat, global ids,
+    factor_depth 10000); the JPEG decoder C++ against plain; each release
+    through cli.runbook (detect, convert, validate, cli.test on the card)
+    and its converted root against the generated one; a copy of the BOP
+    release in metres stops with exit code 2; a BOP release of 20,480-face
+    meshes (the cols kernel); the seed-7 model exported as MXNet weights
+    through --weights, its table and trajectories against the same model
+    loaded directly, and card against CPU with mxnet_pad: the network on
+    one input and one converted-root batch refined from perturbed inits
+    (within 1e-5), the same batch from its GT poses printed (a pixel that
+    one side's pose puts across a face edge moves the next update by more:
+    PERF.md §6, PR 10)."""
+    import io
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_release_fixtures as fx
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import runbook
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import save_config, update_config
+    from deepim_tpu_torch.data import bop, jpeg, lm6d, lm_original, png, toolkit, validate
+    from deepim_tpu_torch.data import video as video_data
+    from deepim_tpu_torch.data.pairs import perturb_poses
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+    from deepim_tpu_torch.train import checkpoint as ckpt
+    from deepim_tpu_torch.train.convert_mxnet import export_mxnet_npz
+    from deepim_tpu_torch.train.train import make_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = update_config(release_yaml(tmp, "base"))
+        d = cfg.dataset
+        objects = sorted(d.objects)
+        size = (d.image_height, d.image_width)
+        k_np = np.array([[d.fx, 0, d.cx], [0, d.fy, d.cy], [0, 0, 1]], np.float32)
+        bs, k_iters = cfg.test.batch_size, cfg.test.test_iter
+        spec = ",".join(f"{i + 1}:{o}" for i, o in enumerate(objects))
+        model = hl.random_model(len(objects))
+
+        # 1. The root, generated on the card.
+        gen = f"{tmp}/gen"
+        rc.reset_launches()
+        t0 = time.perf_counter()
+        toolkit.gen_procedural_dataset(gen, objects, k_np, size, frames_per_obj=RELEASE_FRAMES,
+                                       device=dev)
+        frames = len(objects) * RELEASE_FRAMES
+        log("release_gen", objects=len(objects), frames=frames, size=f"{size[0]}x{size[1]}",
+            seconds=time.perf_counter() - t0, launches=dict(rc.LAUNCHES))
+
+        # 2. The JPEG decoder, C++ against plain, on a generated frame.
+        sample = png.read_png(f"{gen}/data/observed/00/000000-color.png")
+        for sub in ("4:2:0", "4:4:4"):
+            data = fx.encode_jpeg(sample, 90, sub, RELEASE_JPEG_RESTART)
+            fast = jpeg.decode_jpeg(data)
+            t0 = time.perf_counter()
+            plain = jpeg.decode_jpeg(data, plain=True)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ms = []
+            for _ in range(DECODE_REPS):
+                t0 = time.perf_counter()
+                jpeg.decode_jpeg(data)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            equal = bool(np.array_equal(fast, plain))
+            log("release_jpeg", subsampling=sub, restart_interval=RELEASE_JPEG_RESTART,
+                size=f"{sample.shape[0]}x{sample.shape[1]}", bytes=len(data),
+                cpp_ms=statistics.median(ms), plain_ms=plain_ms,
+                speedup=plain_ms / statistics.median(ms), equal=equal,
+                mean_abs_vs_source=float(np.abs(fast.astype(int) - sample).mean()),
+                card=repr(card))
+            if not equal or fast.shape != sample.shape:
+                raise AssertionError(f"the C++ JPEG decoder differs from the plain one ({sub})")
+
+        # 3. Each release through the runbook, on the card.
+        def lm_rgb(src):
+            return lambda scene, frame: jpeg.decode_jpeg(Path(
+                f"{src}/{objects[int(scene)]}/data/color{int(frame)}.jpg").read_bytes())
+
+        releases = (
+            ("bop_json", lambda out: fx.write_bop_release(gen, objects, out, k_np),
+             ["--objects", spec], lambda out, src: fx.compare_bop(gen, out, objects)),
+            ("sixd_yaml", lambda out: fx.write_bop_release(gen, objects, out, k_np, form="yaml"),
+             ["--objects", spec],
+             lambda out, src: fx.compare_bop(gen, out, objects, form="yaml")),
+            ("lm_original", lambda out: fx.write_lm_original_release(gen, objects, out), [],
+             lambda out, src: fx.compare_lm_original(gen, out, objects, lm_rgb(src))),
+            ("ycb_original", lambda out: fx.write_ycb_original_release(gen, objects, out, k_np),
+             [], lambda out, src: fx.compare_ycb(gen, out, objects)),
+        )
+        converters = ((bop, "convert_bop_split"), (lm_original, "convert_lm_original"),
+                      (video_data, "convert_ycb_original"), (validate, "validate"))
+
+        def through_runbook(tag, src, argv, n_models):
+            base = release_yaml(tmp, tag)
+            ckpt.save_checkpoint(ckpt.checkpoint_dir(dataclasses.replace(
+                update_config(base), experiment="real_data_runbook")), hl.SEED,
+                hl.random_model(n_models).state_dict())
+            seconds = {}
+            with contextlib.ExitStack() as stack:
+                for module, name in converters:
+                    stack.enter_context(timed_calls(module, [name], seconds))
+                text, run_s, launches, peak = run_cli(runbook.main, [
+                    src, "--cfg", base, "--device", str(dev), "--out", f"{tmp}/{tag}_conv",
+                    *argv])
+            return text, run_s, launches, peak, seconds
+
+        for tag, write, argv, compare in releases:
+            src = f"{tmp}/{tag}"
+            t0 = time.perf_counter()
+            write(src)
+            write_s = time.perf_counter() - t0
+            text, run_s, launches, peak, seconds = through_runbook(tag, src, argv, len(objects))
+            diff = compare(f"{tmp}/{tag}_conv", src)
+            conv_s = sum(sum(v) for k, v in seconds.items() if k != "validate")
+            records = int(_number(r"evaluated \d+ x (\d+) poses", text))
+            n_batches = -(-records // bs)
+            errors = len(re.findall(r"^\[ERROR\]", text, re.M))
+            log("release", release=tag, frames=diff["frames"], fixture_write_s=write_s,
+                convert_s=conv_s, convert_frames_per_s=diff["frames"] / conv_s,
+                validate_s_each=seconds["validate"], errors=errors,
+                warnings=len(re.findall(r"^\[WARN\]", text, re.M)),
+                pose_max_abs=diff["pose_max_abs"], depth_max_mm=diff["depth_max_mm"],
+                labels_equal=diff["labels_equal"], rgb_equal=diff["rgb_equal"],
+                runbook_s=run_s, records=records, batches=n_batches,
+                poses_per_s=_number(r"\(([\d.]+) poses/s", text),
+                sorted_per_batch=launches["raster_sorted"] / n_batches,
+                cols_per_batch=launches["raster_cols"] / n_batches, peak_mib=peak,
+                mean_row=_row(text, "MEAN"), card=repr(card))
+            counts[f"release_{tag}"] = launches
+            if (errors or not diff["labels_equal"] or not diff["rgb_equal"]
+                    or diff["pose_max_abs"] > 1e-6 or diff["depth_max_mm"] > 1):
+                raise AssertionError(f"{tag}: converted root differs or fails validation: {diff}")
+            if launches["raster_sorted"] != n_batches * k_iters or launches["raster_cols"]:
+                raise AssertionError(f"{tag}: cli.test missed the sorted kernel: {launches}")
+
+        # 4. The BOP release in metres stops before it is converted.
+        src_m = f"{tmp}/bop_metres"
+        shutil.copytree(f"{tmp}/bop_json", src_m)
+        for gt_path in Path(src_m, "test").glob("*/scene_gt.json"):
+            gt = json.loads(gt_path.read_text())
+            for entries in gt.values():
+                for e in entries:
+                    e["cam_t_m2c"] = [t * 1e-3 for t in e["cam_t_m2c"]]
+            gt_path.write_text(json.dumps(gt))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            code = runbook.main([src_m, "--cfg", release_yaml(tmp, "metres"), "--objects", spec,
+                                 "--device", str(dev)])
+        named = set(re.findall(r"^\[ERROR\] (\S+):", out.getvalue(), re.M))
+        log("release_metres", exit_code=code, errors=sorted(named),
+            converted=os.path.exists(src_m + "_converted"))
+        if code != 2 or named != RELEASE_METRES_ERRORS:
+            raise AssertionError(f"the BOP release in metres: exit {code}, errors {named}")
+
+        # 5. A BOP release of 20,480-face meshes: the cols kernel.
+        dense = ["icosphere_dense", "icosphere_dense2"]
+        gen_d = f"{tmp}/gen_dense"
+        toolkit.gen_observed(gen_d, {o: PROCEDURAL_MESHES[o]() for o in dense}, k_np, size,
+                             frames_per_obj=RELEASE_DENSE_FRAMES, device=dev)
+        fx.write_bop_release(gen_d, dense, f"{tmp}/bop_dense", k_np)
+        text, run_s, launches, _, seconds = through_runbook(
+            "bop_dense", f"{tmp}/bop_dense", ["--objects", f"1:{dense[0]},2:{dense[1]}"],
+            len(dense))
+        diff = fx.compare_bop(gen_d, f"{tmp}/bop_dense_conv", dense)
+        n_batches = -(-len(dense) * RELEASE_DENSE_FRAMES // bs)
+        counts["release_bop_dense"] = launches
+        log("release_dense", faces=PROCEDURAL_MESHES[dense[0]]().num_faces,
+            max_faces=cfg.dataset.max_faces, frames=diff["frames"],
+            convert_s=sum(seconds["convert_bop_split"]), pose_max_abs=diff["pose_max_abs"],
+            depth_max_mm=diff["depth_max_mm"], runbook_s=run_s,
+            cols_per_batch=launches["raster_cols"] / n_batches,
+            sorted_per_batch=launches["raster_sorted"] / n_batches, mean_row=_row(text, "MEAN"))
+        if launches["raster_cols"] < n_batches or diff["depth_max_mm"] > 1:
+            raise AssertionError(f"the dense BOP release missed the cols kernel: {launches}")
+
+        # 6. MXNet weights: the seed-7 model exported and imported by the runbook.
+        npz = f"{tmp}/seed7_mxnet.npz"
+        export_mxnet_npz(model.state_dict(), npz)
+        wtag = "weights"
+        wbase = release_yaml(tmp, wtag, mxnet_pad=True)
+        text_w, _, launches_w, _ = run_cli(runbook.main, [
+            f"{tmp}/bop_json", "--cfg", wbase, "--weights", npz, "--objects", spec, "--device",
+            str(dev), "--out", f"{tmp}/{wtag}_conv"])
+        kept = int(_number(r"weights: (\d+) layers kept their init", text_w))
+        cfg_w_path = f"{tmp}/{wtag}/real_data_runbook/config.yaml"
+        cfg_w = update_config(cfg_w_path)
+        direct = dataclasses.replace(cfg_w, experiment="direct")
+        direct_path = f"{tmp}/direct.yaml"
+        save_config(direct, direct_path)
+        ckpt.save_checkpoint(ckpt.checkpoint_dir(direct), 0, model.state_dict())
+        runs = {}
+        for tag, p, exp in (("runbook", cfg_w_path, "real_data_runbook"),
+                            ("direct", direct_path, "direct")):
+            text, _, _, _ = run_cli(cli_test.main, ["--cfg", p, "--device", str(dev),
+                                                    "--save-poses"])
+            runs[tag] = (table_rows(text), np.load(f"{tmp}/{wtag}/{exp}/refined_poses.npz")["traj"])
+        same = table_rows(text_w) == runs["runbook"][0] == runs["direct"][0]
+        traj_equal = bool(np.array_equal(runs["runbook"][1], runs["direct"][1]))
+
+        # One converted-root batch, card against CPU, float32, mxnet_pad on:
+        # the network alone on one input, then refine_batches from
+        # perturbed inits (what cli.test gets from init poses; gated) and
+        # from the GT (what the runbook's cli.test ran here: printed).
+        ds_w = lm6d.LM6DDataset(cfg_w.dataset.root, list(cfg_w.dataset.objects))
+        recs = [r for o in cfg_w.dataset.objects for r in ds_w.gt_roidb(o, "test")]
+        recs = recs[::len(recs) // RELEASE_PARITY_B][:RELEASE_PARITY_B]
+        gt = np.stack([r.pose for r in recs])
+        inits = {"perturbed": perturb_poses(torch.Generator().manual_seed(0),
+                                            torch.from_numpy(gt)).numpy(), "gt": gt}
+        _, params = ckpt.restore_checkpoint(ckpt.checkpoint_dir(cfg_w))
+        k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
+        net_hw = (cfg_w.network.input_height, cfg_w.network.input_width)
+        sides = []
+        for where in (dev, torch.device("cpu")):
+            m = make_model(cfg_w, len(objects), inference=True)
+            ckpt.load_params(m, params)
+            m.dtype = torch.float32
+            sides.append((where, m.to(where).eval(),
+                          load_assets_and_names(cfg_w, eval_set=True, device=where)[0]))
+        x = torch.from_numpy(np.random.RandomState(0).uniform(
+            -0.5, 0.5, (RELEASE_PARITY_B, *net_hw, 6)).astype(np.float32))
+        with torch.no_grad():
+            outs = [m(x.to(where)) for where, m, _ in sides]
+        net_diff = max((outs[0][k].cpu() - outs[1][k]).abs().max().item()
+                       for k in ("rot_raw", "trans"))
+        per_iter, moved = {}, 0.0
+        for name, init in inits.items():
+            extra = {"pose_src": init.astype(np.float32), "pose_tgt": gt,
+                     "class_idx": np.array([r.class_idx for r in recs], np.int64)}
+            host = next(iter(lm6d.iter_frame_batches(ds_w, recs, len(recs), pin_memory=False,
+                                                     extra=extra)))
+            part = {k: v.clone() for k, v in host.items() if k not in ("obs_depth", "obs_mask")}
+            trajs = [cli_test.refine_batches(m, a, [part], k_cam.to(where), num_iters=k_iters,
+                                             out_size=net_hw)["traj"].cpu()
+                     for where, m, a in sides]
+            per_iter[name] = (trajs[0] - trajs[1]).abs().flatten(1).max(1).values.tolist()
+            if name == "perturbed":
+                moved = (trajs[1][-1] - trajs[1][0]).abs().max().item()
+        log("release_weights", layers_kept_init=kept, mxnet_pad=cfg_w.network.mxnet_pad,
+            tables_equal=same, traj_equal=traj_equal, traj_shape=list(runs["direct"][1].shape),
+            sorted_per_batch=launches_w["raster_sorted"] / -(-frames // bs),
+            parity_rows=len(recs), network_max_diff=net_diff,
+            parity_max_diff_per_iter_perturbed=per_iter["perturbed"],
+            parity_max_diff_per_iter_gt_init=per_iter["gt"], parity_atol=EVAL_TRAJ_ATOL,
+            moved=moved, mean_row=_row(text_w, "MEAN"))
+        if not (same and traj_equal and cfg_w.network.mxnet_pad):
+            raise AssertionError("the runbook's imported weights gave another table or "
+                                 "trajectories than the model loaded directly")
+        if (not net_diff <= EVAL_TRAJ_ATOL or not max(per_iter["perturbed"]) <= EVAL_TRAJ_ATOL
+                or not moved > 1e-3):
+            raise AssertionError(f"the converted model with mxnet_pad computes differently on "
+                                 f"card and CPU: network {net_diff}, refine {per_iter}")
+
+
 def png_filters(data: bytes) -> tuple[int, ...]:
     """The distinct row filters of a PNG's rows."""
     import struct
@@ -2583,7 +2913,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-15 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-16 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -2668,6 +2998,9 @@ def run_phases(dev, card: str) -> list[dict]:
 
     # The on-disk datasets: generation, decoding, cli.test and cli.train.
     phase_disk(dev, card, rc, counts)
+
+    # Public releases: converters, validator, JPEG, MXNet weights, runbook.
+    phase_releases(dev, card, rc, counts)
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -5,18 +5,19 @@ field and default for default (so every experiment YAML of the repo loads
 into both packages alike), ``QUANT_MODES``, ``_validate``, ``_merge``,
 ``update_config``, ``config_from_dict`` and ``save_config``.
 
-Differences: ``yaml`` is imported only by the two functions that read or
-write a file (the card's machine may lack PyYAML; ``config_from_dict``
-needs none), and ``_validate`` checks the flow stride against this
-module's own copy of the flow pyramid's ``FLOW_LEVEL_WEIGHTS``.  Fields
-that select a JAX renderer (``train.renderer``, ``test.renderer``) are
-kept so the YAMLs load; in the port they select nothing: the device of
+Differences: ``yaml`` is imported only by the function that reads a file
+(the card's machine may lack PyYAML; ``config_from_dict`` needs none, and
+``save_config`` writes its YAML itself), and ``_validate`` checks the flow
+stride against this module's own copy of the flow pyramid's
+``FLOW_LEVEL_WEIGHTS``.  Fields that select a JAX renderer
+(``train.renderer``, ``test.renderer``) are kept so the YAMLs load; in the port they select nothing: the device of
 the tensors decides between the CUDA kernels and their plain versions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -284,7 +285,39 @@ def config_from_dict(overrides: dict[str, Any], base: Config | None = None) -> C
     return _validate(_merge(base or Config(), overrides))
 
 
+def _scalar(v) -> str:
+    """One config value as a YAML 1.1 scalar or flow list that PyYAML reads
+    back as the same value (floats always carry a dot: '1.0e-05')."""
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_scalar(x) for x in v) + "]"
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        mant, _, exp = text.partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return mant + ("e" + exp if exp else "")
+    return json.dumps(str(v))  # a JSON string is a YAML double-quoted scalar
+
+
 def save_config(cfg: Config, path: str) -> None:
-    yaml = _yaml()
+    """Write ``cfg`` as YAML (block mappings of scalars) -> ``update_config``
+    reads it back equal, with no PyYAML needed to write it."""
+    lines = []
+    for key, val in dataclasses.asdict(cfg).items():
+        if isinstance(val, dict):
+            lines.append(f"{key}:")
+            lines += [f"  {k}: {_scalar(v)}" for k, v in val.items()]
+        else:
+            lines.append(f"{key}: {_scalar(val)}")
     with open(path, "w") as f:
-        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)
+        f.write("\n".join(lines) + "\n")

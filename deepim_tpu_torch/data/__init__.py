@@ -7,10 +7,14 @@ Port of ``deepim_tpu/data/pairs.py`` (``sample_poses_in_frustum``,
 ``deepim_tpu/data/lm6d.py`` (the LM6d layout, its readers, streaming
 loaders and ``TrainBatcher``), ``deepim_tpu/data/toolkit.py`` (an LM6d
 root generated on the device) and ``deepim_tpu/data/video.py``
-(``VideoDataset``, ``gen_video``, the YCB-Video keyframe protocol), with
-the port's own PNG codec (``png.py``).
+(``VideoDataset``, ``gen_video``, the YCB-Video keyframe protocol,
+``convert_ycb_original``), ``deepim_tpu/data/bop.py``,
+``lm_original.py`` and ``validate.py`` (the public releases' converters and
+the preflight), with the port's own PNG codec (``png.py``) and baseline
+JPEG decoder (``jpeg.py``).
 """
 
+from deepim_tpu_torch.data.jpeg import decode_jpeg, imread
 from deepim_tpu_torch.data.lm6d import (
     DEPTH_FACTOR, FrameRecord, LM6DDataset, TrainBatcher, apply_bop_init, iter_frame_batches,
     prefetch_iter, to_device)

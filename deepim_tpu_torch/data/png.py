@@ -125,12 +125,13 @@ def unfilter_plain(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndar
     return out
 
 
-def build_unfilter() -> Path:
-    """Compile ``csrc/png_unfilter.cpp`` into ``_build/`` unless this exact
-    build exists -> the shared library.  Concurrent builders (test workers)
-    each compile into a temporary directory and rename atomically."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + UNFILTER_SRC.read_bytes())
-    out = BUILD_DIR / f"libdeepim_png_{h.hexdigest()[:16]}.so"
+def build_library(src: Path, stem: str) -> Path:
+    """Compile the C++ source ``src`` into ``_build/{stem}_{hash}.so`` unless
+    this exact build exists -> the shared library.  Concurrent builders
+    (test workers) each compile into a temporary directory and rename
+    atomically.  A failed build raises, naming the compiler's output."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src.read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -138,16 +139,21 @@ def build_unfilter() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         so = f"{tmp}/lib.so"
         try:
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", so, str(UNFILTER_SRC)],
+            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", so, str(src)],
                                   capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"cannot run the C++ compiler {cxx!r} to build "
-                               f"{UNFILTER_SRC.name}: {e}") from e
+                               f"{src.name}: {e}") from e
         if proc.returncode != 0:
             raise RuntimeError(f"{cxx} failed ({proc.returncode}) building "
-                               f"{UNFILTER_SRC.name}:\n{proc.stdout}{proc.stderr}")
+                               f"{src.name}:\n{proc.stdout}{proc.stderr}")
         os.replace(so, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def build_unfilter() -> Path:
+    """``csrc/png_unfilter.cpp`` built by :func:`build_library`."""
+    return build_library(UNFILTER_SRC, "libdeepim_png")
 
 
 def _unfilter_lib():

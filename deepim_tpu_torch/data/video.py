@@ -32,15 +32,16 @@ all of its objects (``load_frame_raw``, ``frame_mask``, ``load_keyframe``),
 ``keyframe_records``, ``iter_keyframe_batches`` (the keyframe counterpart
 of :func:`~deepim_tpu_torch.data.lm6d.iter_frame_batches`: host slots,
 :func:`~deepim_tpu_torch.data.lm6d.to_device`) and the PoseCNN ``.mat``
-import ``apply_posecnn_mat_init`` (``scipy.io.loadmat``).
-``convert_ycb_original``, the converter of the original YCB-Video
-release, is not ported yet (ROADMAP A13.2).
+import ``apply_posecnn_mat_init`` (``scipy.io.loadmat``), and
+``convert_ycb_original``, the converter of the original YCB-Video release
+into this layout.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import time
 from functools import partial
 
@@ -382,6 +383,93 @@ def _render_frame(assets, cls: torch.Tensor, poses: torch.Tensor, k: torch.Tenso
     hit = (deps > 0).any(0)
     label = torch.where(hit, big.argmin(0).to(torch.int32) + 1, 0)
     return rgb[0], depth[0], label
+
+
+def convert_ycb_original(src_root: str, out_root: str, class_names: list[str],
+                         sequences: list[str] | None = None,
+                         max_frames_per_seq: int | None = None) -> VideoDataset:
+    """Convert the ORIGINAL YCB-Video release into the layout above:
+
+        {src}/data/{seq}/{frame}-color.png, -depth.png, -label.png,
+                         -meta.mat   # poses (3, 4, n), cls_indexes (1-based
+                                     # into the 21-class list), factor_depth
+        {src}/models/{name}/textured.obj (or .ply)
+        {src}/image_sets/keyframe.txt   # lines "{seq}/{frame}"
+
+    ``class_names``: the release's class names IN ORDER (``cls_indexes``
+    are 1-based positions in it).  Frames are written one by one; label
+    pixels go from global class ids to the sequence's slots (1 + the
+    object's index in ``{seq}_objects.txt``); depth is rescaled from the
+    release's ``factor_depth`` to ``DEPTH_FACTOR`` with the reference's
+    float32 operations and truncation; poses stay in metres; colour PNGs
+    are copied byte for byte (the reference re-encodes them through PIL:
+    the same pixels); model directories are copied verbatim and each
+    model is loaded once; the keyframe list is passed through, less
+    sequences not converted."""
+    from scipy.io import loadmat
+
+    from deepim_tpu_torch.raster.mesh import load_mesh
+
+    ds = VideoDataset(out_root, list(class_names))
+    data_dir = os.path.join(src_root, "data")
+    seqs = sequences or sorted(os.listdir(data_dir))
+
+    seen_classes: set[int] = set()
+    for seq in seqs:
+        sdir = os.path.join(data_dir, seq)
+        frames = sorted({f.split("-")[0] for f in os.listdir(sdir) if f.endswith("-color.png")})
+        if max_frames_per_seq:
+            frames = frames[:max_frames_per_seq]
+        out_dir = os.path.join(out_root, "data", "video", seq)
+        os.makedirs(out_dir, exist_ok=True)
+        seq_cls: list[int] | None = None
+        for fid in frames:
+            meta = loadmat(os.path.join(sdir, f"{fid}-meta.mat"))
+            cls0 = [int(c) - 1 for c in np.asarray(meta["cls_indexes"]).reshape(-1)]
+            if seq_cls is None:
+                seq_cls = cls0
+                seen_classes.update(cls0)
+            poses = np.asarray(meta["poses"], np.float32)  # (3, 4, n)
+            factor = float(np.asarray(meta["factor_depth"]).reshape(-1)[0])
+            for slot, ci in enumerate(cls0):
+                np.savetxt(os.path.join(out_dir, f"{fid}-pose_{class_names[ci]}.txt"),
+                           poses[:, :, slot])
+            shutil.copyfile(os.path.join(sdir, f"{fid}-color.png"),
+                            os.path.join(out_dir, f"{fid}-color.png"))
+            dep = read_png(os.path.join(sdir, f"{fid}-depth.png")).astype(np.float32) / factor
+            write_png(os.path.join(out_dir, f"{fid}-depth.png"),
+                      (dep * DEPTH_FACTOR).astype(np.uint16))
+            lab_path = os.path.join(sdir, f"{fid}-label.png")
+            if os.path.exists(lab_path):
+                lab = read_png(lab_path)
+                out_lab = np.zeros_like(lab, dtype=np.uint8)
+                for slot, ci in enumerate(cls0):
+                    out_lab[lab == ci + 1] = slot + 1  # global id -> slot
+                write_png(os.path.join(out_dir, f"{fid}-label.png"), out_lab)
+        os.makedirs(os.path.join(out_root, "video_sets"), exist_ok=True)
+        with open(os.path.join(out_root, "video_sets", f"{seq}.txt"), "w") as f:
+            f.write("\n".join(frames) + "\n")
+        with open(os.path.join(out_root, "video_sets", f"{seq}_objects.txt"), "w") as f:
+            f.write("\n".join(class_names[c] for c in seq_cls) + "\n")
+
+    for ci in sorted(seen_classes):
+        name = class_names[ci]
+        mdir = os.path.join(src_root, "models", name)
+        if os.path.isdir(mdir):
+            # verbatim (textured.obj + .mtl + texture map): the texture
+            # survives, which an ASCII PLY re-encode would bake away
+            out_mdir = os.path.join(out_root, "models", name)
+            os.makedirs(out_mdir, exist_ok=True)
+            for fn in os.listdir(mdir):
+                shutil.copy2(os.path.join(mdir, fn), os.path.join(out_mdir, fn))
+            load_mesh(ds._frames.model_path(name))  # it loads
+
+    kf_src = os.path.join(src_root, "image_sets", "keyframe.txt")
+    if os.path.exists(kf_src):
+        with open(kf_src) as f:
+            pairs = [tuple(ln.strip().split("/")) for ln in f if ln.strip()]
+        ds.write_keyframes([p for p in pairs if p[0] in set(seqs)])
+    return ds
 
 
 def keyframe_records(ds: VideoDataset) -> list[FrameRecord]:

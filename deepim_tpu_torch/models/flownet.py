@@ -16,6 +16,10 @@ Numbers follow the reference's flax modules:
 - Padding is XLA's SAME, which splits odd padding with the extra pixel at
   the end and depends on the live input size (:func:`same_pad`);
   ``Conv2d(padding=k//2)`` would shift stride-2 taps by one pixel.
+  ``mxnet_pad=True`` pads the encoder convs ``k//2`` on both sides instead,
+  as MXNet does (the reference's ``Conv(sym_pad=True)``): weights converted
+  from the MXNet DeepIM (``train/convert_mxnet.py``) need it.  It differs
+  from SAME only in the stride-2 convs conv1 .. conv6.
 - The decoder's 4x4/s2 transposed convs: flax's ``ConvTranspose`` with
   SAME pads the stride-dilated input by (2, 2) and correlates with its
   kernel unflipped; torch's ``conv_transpose2d`` is a conv's gradient,
@@ -112,7 +116,7 @@ class DeepIMFlowNet(nn.Module):
                  trans_scale: tuple[float, float, float] = (20.0, 20.0, 0.5),
                  dtype: torch.dtype = torch.bfloat16, quant: str = "none",
                  with_flow: bool = False, with_mask: bool = False,
-                 pose_head: str = "flatten",
+                 pose_head: str = "flatten", mxnet_pad: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if quant != "none":
@@ -135,6 +139,7 @@ class DeepIMFlowNet(nn.Module):
         self.with_flow = with_flow
         self.with_mask = with_mask
         self.pose_head = pose_head
+        self.mxnet_pad = mxnet_pad
         self.dtype = dtype
         self.register_buffer("trans_scale",
                              torch.tensor(trans_scale, dtype=torch.float32),
@@ -180,16 +185,20 @@ class DeepIMFlowNet(nn.Module):
             if rot_type == "quat":
                 self.fc_rot.bias.view(num_classes, 4)[:, 0] = 1.0
 
-    def _same(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """``conv`` with XLA SAME padding, in the compute type."""
+    def _same(self, conv: nn.Conv2d, x: torch.Tensor, sym: bool = False) -> torch.Tensor:
+        """``conv`` with XLA SAME padding, or ``k//2`` on both sides when
+        ``sym`` (MXNet's), in the compute type."""
         k, s = conv.kernel_size[0], conv.stride[0]
-        (ht, hb), (wl, wr) = (same_pad(x.shape[2], k, s),
-                              same_pad(x.shape[3], k, s))
+        if sym:
+            (ht, hb) = (wl, wr) = (k // 2, k // 2)
+        else:
+            (ht, hb), (wl, wr) = (same_pad(x.shape[2], k, s),
+                                  same_pad(x.shape[3], k, s))
         x = F.pad(x, (wl, wr, ht, hb))
         return F.conv2d(x, conv.weight.to(self.dtype), conv.bias.to(self.dtype), s)
 
-    def _conv(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        return leaky(self._same(getattr(self, name), x))
+    def _conv(self, name: str, x: torch.Tensor, sym: bool = False) -> torch.Tensor:
+        return leaky(self._same(getattr(self, name), x, sym))
 
     def _up(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """A 4x4/s2 transposed conv with flax's SAME (output 2n)."""
@@ -230,7 +239,7 @@ class DeepIMFlowNet(nn.Module):
         c = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
         skips = {}
         for name, *_ in ENCODER:
-            c = self._conv(name, c)
+            c = self._conv(name, c, self.mxnet_pad)
             if decode and name in SKIPS.values():
                 skips[name] = c
         out = self._decode(c, skips) if decode else {}

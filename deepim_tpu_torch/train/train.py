@@ -77,9 +77,6 @@ def make_model(cfg, num_classes: int, inference: bool = False,
     classes.
     """
     n = cfg.network
-    if n.mxnet_pad:
-        raise NotImplementedError("network.mxnet_pad: the MXNet padding of converted "
-                                  "checkpoints is not ported")
     return DeepIMFlowNet(
         num_classes=1 if n.class_agnostic else num_classes,
         rot_type=n.rot_type,
@@ -92,6 +89,7 @@ def make_model(cfg, num_classes: int, inference: bool = False,
         with_flow=n.with_flow and not inference,
         with_mask=n.with_mask and not inference,
         pose_head=n.pose_head,
+        mxnet_pad=n.mxnet_pad,
         generator=generator,
     )
 

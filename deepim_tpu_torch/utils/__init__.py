@@ -1,6 +1,8 @@
-"""Utilities: result records and visualization (numpy, host-side).
+"""Utilities: result records, visualization, logging and profiling.
 
-Port of ``deepim_tpu/utils/results.py`` and ``deepim_tpu/utils/viz.py``.
+Port of ``deepim_tpu/utils/results.py``, ``viz.py``, ``logging.py`` and
+``profiling.py``.  ``deepim_tpu/utils/platform.py`` (which pins JAX's
+platform) has no counterpart: the port's entry points take ``--device``.
 """
 
 from deepim_tpu_torch.utils.results import record_result
@@ -11,3 +13,5 @@ from deepim_tpu_torch.utils.viz import (
     save_image,
     side_by_side,
 )
+from deepim_tpu_torch.utils.logging import MetricsLogger, PrintAndLog, mkdir_if_missing
+from deepim_tpu_torch.utils.profiling import Speedometer, StageTimer, stage, trace

@@ -1,8 +1,7 @@
 """deepim_tpu_torch.data.video's keyframe protocol against deepim_tpu's (CPU).
 
-The cases of tests/test_keyframe.py but ``convert_ycb_original`` (not
-ported), on a YCB-style sequence the reference's ``gen_video`` writes and
-both packages read:
+The cases of tests/test_keyframe.py, on a YCB-style sequence the
+reference's ``gen_video`` writes and both packages read:
 - ``keyframes`` and ``keyframe_records``: the same rows and GT poses;
 - ``iter_keyframe_batches`` with padding: frames and the per-sequence
   slot masks bit for bit the reference's (the port's batches converted by
@@ -11,7 +10,15 @@ both packages read:
   batch equal to the per-record ``load_keyframe``;
 - ``apply_posecnn_mat_init`` on released-style ``.mat`` files
   (``scipy.io``): the same matches and init poses as the reference's;
-  a missing results directory matches nothing.
+  a missing results directory matches nothing;
+- ``convert_ycb_original`` on the reference test's release fixture
+  (``-meta.mat``, 1-based global class ids, ``factor_depth`` 10000, global
+  labels, ``keyframe.txt`` with a foreign sequence, OBJ models): both
+  packages write the same files (images decode equal, the port copying the
+  colour PNGs' bytes where the reference re-encodes them; poses within
+  rtol 1e-6), and the reference test's checks hold on the port's output;
+  then a generated root laid out as the release converts back to it
+  (poses within 1e-6 m, masks equal, RGB equal, depth within 1 mm).
 """
 
 import os
@@ -127,3 +134,91 @@ def test_posecnn_mat_import(root, tmp_path):
     # obj_ids map class_idx to the release's ids: a map naming others matches none
     assert video_t.apply_posecnn_mat_init(rt, init_t.copy(), str(results), obj_ids=[7, 9]) == 0
     assert video_t.apply_posecnn_mat_init(rt, init_t.copy(), str(tmp_path / "nope")) == 0
+
+
+def _write_ycb_original(src):
+    """The fixture of tests/test_keyframe.py §test_convert_ycb_original."""
+    from PIL import Image
+    from scipy import io as scipy_io
+
+    rng = np.random.RandomState(0)
+    seq, fids = "0003", ["000001", "000002"]
+    sdir = os.path.join(src, "data", seq)
+    os.makedirs(sdir)
+    cls_indexes = np.asarray([[2], [3]], np.uint8)  # beta (2) and gamma (3), 1-based
+    gt = {}
+    for fid in fids:
+        Image.fromarray(rng.randint(0, 255, (48, 64, 3), np.uint8)).save(
+            os.path.join(sdir, f"{fid}-color.png"))
+        depth_m = rng.rand(48, 64).astype(np.float32)
+        Image.fromarray((depth_m * 10000).astype(np.uint16)).save(
+            os.path.join(sdir, f"{fid}-depth.png"))
+        lab = np.zeros((48, 64), np.uint8)
+        lab[:10, :10] = 2  # global class id of beta
+        lab[20:30, :10] = 3  # gamma
+        Image.fromarray(lab).save(os.path.join(sdir, f"{fid}-label.png"))
+        poses = rng.randn(3, 4, 2).astype(np.float32)
+        scipy_io.savemat(os.path.join(sdir, f"{fid}-meta.mat"),
+                         {"poses": poses, "cls_indexes": cls_indexes,
+                          "factor_depth": np.asarray([[10000.0]]),
+                          "intrinsic_matrix": np.eye(3)})
+        gt[fid] = (poses, depth_m)
+    for name in ("beta", "gamma"):
+        mdir = os.path.join(src, "models", name)
+        os.makedirs(mdir)
+        with open(os.path.join(mdir, "textured.obj"), "w") as f:
+            f.write("v 0 0 0\nv 0.1 0 0\nv 0 0.1 0\nf 1 2 3\n")
+    os.makedirs(os.path.join(src, "image_sets"))
+    with open(os.path.join(src, "image_sets", "keyframe.txt"), "w") as f:
+        f.write(f"{seq}/{fids[1]}\n0099/000777\n")  # one outside the sequences
+    return seq, fids, gt
+
+
+def test_convert_ycb_original(tmp_path):
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_release_fixtures import assert_trees_match
+
+    classes = ["alpha", "beta", "gamma"]
+    src = str(tmp_path / "ycb_src")
+    seq, fids, gt = _write_ycb_original(src)
+    out_j, out = str(tmp_path / "ycb_video_j"), str(tmp_path / "ycb_video")
+    video_j.convert_ycb_original(src, out_j, classes)
+    ds = video_t.convert_ycb_original(src, out, classes)
+    assert assert_trees_match(out_j, out) > 0
+    assert ds.objects_in(seq) == ["beta", "gamma"]
+    assert ds.keyframes() == [(seq, fids[1])]  # the foreign sequence filtered
+    np.testing.assert_allclose(ds.keyframe_pose(seq, fids[0], "beta"), gt[fids[0]][0][:, :, 0],
+                               atol=1e-6)
+    frame = ds.load_keyframe(seq, fids[0], "gamma")
+    np.testing.assert_allclose(frame["obs_depth"], gt[fids[0]][1], atol=2e-3)  # uint16 mm
+    assert frame["obs_mask"][20:30, :10].all()  # gamma (global 3) is slot 2
+    assert not frame["obs_mask"][:10, :10].any()
+    with open(os.path.join(src, "data", seq, f"{fids[0]}-color.png"), "rb") as f:
+        src_bytes = f.read()
+    with open(ds._vid(seq, fids[0], "color.png"), "rb") as f:
+        assert f.read() == src_bytes  # copied, not re-encoded
+    m1, m2 = lm6d_t.LM6DDataset(out, ["beta", "gamma"]).load_meshes()
+    assert m1.num_faces == 1 and m2.num_faces == 1
+
+
+def test_convert_ycb_original_release_fixture(tmp_path):
+    import sys
+
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_torch_release_fixtures import (
+        _generated, assert_trees_match, compare_ycb, write_ycb_original_release)
+
+    gen = _generated(tmp_path, OBJECTS)
+    src = str(tmp_path / "ycb_release")
+    classes = write_ycb_original_release(gen, OBJECTS, src, K_CAM)
+    out_j, out = str(tmp_path / "out_j"), str(tmp_path / "out_t")
+    video_j.convert_ycb_original(src, out_j, classes)
+    ds = video_t.convert_ycb_original(src, out, classes)
+    assert_trees_match(out_j, out)
+    d = compare_ycb(gen, out, OBJECTS)
+    assert d["frames"] == 6 and d["labels_equal"] and d["rgb_equal"], d
+    assert d["pose_max_abs"] <= 1e-6 and d["depth_max_mm"] <= 1, d
+    assert ds.keyframes() == [("0000", "000000"), ("0000", "000002"), ("0001", "000000"),
+                              ("0001", "000002")]

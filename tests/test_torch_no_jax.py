@@ -5,7 +5,10 @@ refine, serve, train (the losses, the flow GT, the optimizer, one fused
 synthetic step, a checkpoint round trip), evaluate (the evaluator, PNG
 and BOP files, the eval loop), generate and read video sequences, and
 generate and read an on-disk LM6d root (the toolkit, the C++ PNG unfilter,
-the streamed batches, ``TrainBatcher``, an OBJ model) with jax, optax,
+the streamed batches, ``TrainBatcher``, an OBJ model), and convert public
+releases (a BOP JSON release, an original LINEMOD one with JPEG frames,
+``cli.runbook --dry-run``: detect, convert, validate, write the eval
+config) with jax, optax,
 orbax, PyYAML and PIL blocked; no source file of the port may import jax,
 flax, orbax, PIL or the reference, none may import yaml when it is
 imported, and none names the reference's native library.
@@ -127,6 +130,37 @@ with tempfile.TemporaryDirectory() as d:
     with open(d + "/m.obj", "w") as f:
         f.write("v 0 0 0\nv 0.1 0 0\nv 0 0.1 0\nf 1 2 3\n")
     assert load_mesh(d + "/m.obj").num_faces == 1
+import os
+sys.path.insert(0, sys.argv[1] + "/tests")
+import test_torch_release_fixtures as fx
+from deepim_tpu_torch.cli import runbook
+from deepim_tpu_torch.data.bop import convert_bop_split
+from deepim_tpu_torch.data.lm_original import convert_lm_original
+with tempfile.TemporaryDirectory() as d:
+    objs = ["box", "icosphere"]
+    root = toolkit.gen_procedural_dataset(d + "/gen", objs, k.numpy(), (24, 32),
+                                          frames_per_obj=2, device="cpu").root
+    names = fx.write_bop_release(root, objs, d + "/bop", k.numpy())
+    convert_bop_split(d + "/bop", "test", d + "/bop_conv", names)
+    got = fx.compare_bop(root, d + "/bop_conv", objs)
+    assert got["rgb_equal"] and got["labels_equal"] and got["depth_max_mm"] == 0, got
+    fx.write_lm_original_release(root, objs, d + "/accv")
+    jpg = fx.encode_jpeg(read_png(root + "/data/observed/00/000000-color.png"))
+    conv = convert_lm_original(d + "/accv", d + "/accv_conv")
+    from deepim_tpu_torch.data.jpeg import decode_jpeg
+    assert (conv.load_frame_raw(conv.gt_roidb("box", "test")[0])[0] == decode_jpeg(jpg)).all()
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        assert runbook.main([d + "/accv", "--dry-run", "--device", "cpu",
+                             "--out", d + "/accv_rb"]) == 0
+    finally:
+        os.chdir(cwd)
+    assert os.path.exists(d + "/output/real_data_runbook/config.yaml")
+for m in ("data.jpeg", "data.bop", "data.lm_original", "data.validate", "cli.runbook",
+          "cli.convert_dataset", "cli.validate_dataset", "train.convert_mxnet",
+          "utils.profiling", "utils.logging"):
+    assert "deepim_tpu_torch." + m in mods, m
 try:
     from deepim_tpu_torch.config import update_config
     update_config("experiments/cfgs/synthetic_all.yaml")
