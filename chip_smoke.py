@@ -173,6 +173,26 @@ Phases, one line each (any failure raises and the script exits nonzero):
    ``--weights``: its table and trajectories equal to the same model
    loaded directly, and one converted-root batch card against CPU
    (float32, ``mxnet_pad``, within 1e-5).
+17. int8 inference (``network.quant``): the headline (B=128, K=4 of which
+   2 coarse, the 1,280-face classes, seed-7 weights) at quant none, int8
+   and int8_static (scales calibrated on the headline batch, estimator
+   max), timed in turns in one process: poses/s, the raster launches and
+   ``_int_mm`` calls of one call, peak MiB, the calibration's seconds;
+   each encoder conv and fc1/fc2 at 480x640: the ms of the quantize, the
+   patch matrix, the ``_int_mm`` calls and the dequantize, the whole int8
+   layer, and the bf16 cuDNN conv / linear on the same input, beside the
+   ``_int_mm`` bound (bytes at 3.35 TB/s or int8 operations at 1,979
+   TOP/s); the int8 network card against CPU on identical inputs at B=2
+   (float32: within 1e-5 of the outputs' scale, the encoder printed;
+   bf16 printed), dynamic and static; ``refine_poses`` int8 card against
+   CPU at B=8 (atol 1e-2: an ulp of the zoom moves an int8 value a step);
+   ``PoseRefinerService`` at the flagship config with quant int8_static
+   (calibrated at construction; 4 clients of 16 poses, each result
+   against a direct ``refine_poses`` within 1e-3); ``cli.test --quant
+   int8_static`` on ``synthetic_small.yaml`` (exit 0, the calibration
+   line, the table); a progressive JPEG and an Adam7-interlaced PNG of a
+   480x640 frame rendered on the card, C++ against plain (arrays equal,
+   ms a frame).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -522,7 +542,8 @@ def phase_kernels(dev, assets, sort_assets, init, ks, cls, rc):
     return record
 
 
-def phase_parity(model_f32, assets, obs, init, ks, cls, batch=PARITY_B, **fields):
+def phase_parity(model_f32, assets, obs, init, ks, cls, batch=PARITY_B, atol=PARITY_ATOL,
+                 **fields):
     """refine_poses with the kernels (card) against the plain versions (CPU)."""
     from deepim_tpu_torch import headline as hl
 
@@ -537,9 +558,9 @@ def phase_parity(model_f32, assets, obs, init, ks, cls, batch=PARITY_B, **fields
     t_cpu = time.perf_counter() - t0
     diff = (traj_k - traj_p).abs().max().item()
     moved = (traj_k[-1] - traj_k[0]).abs().max().item()
-    log("parity", **fields, batch=batch, max_pose_diff=diff, atol=PARITY_ATOL,
+    log("parity", **fields, batch=batch, max_pose_diff=diff, atol=atol,
         moved=moved, card_s=t_card, cpu_s=t_cpu)
-    if not diff <= PARITY_ATOL or not moved > 1e-3:
+    if not diff <= atol or not moved > 1e-3:
         raise AssertionError("refine_poses on the card disagrees with the CPU path")
 
 
@@ -2805,6 +2826,352 @@ def phase_releases(dev, card, rc, counts):
                                  f"card and CPU: network {net_diff}, refine {per_iter}")
 
 
+INT8_REPS = 4  # pipelined headline calls a timing, each mode timed twice in turns
+INT8_LAYER_REPS = 5
+INT8_NET_B = 2  # the int8 network card against CPU at 480x640
+INT8_NET_RTOL = 1e-5  # of the outputs' scale: only fc_rot/fc_trans sum in another order
+# refine_poses int8, card against CPU: the zoom's float32 einsums differ by
+# ulps, and an ulp at a rounding boundary moves an int8 value one step (a
+# step is 1/127 of a layer's range); over K=4 iterations 1.68e-3 was read
+# (the first card call).  1e-2 is 3 % of how far the poses move (~0.3).
+INT8_PARITY_ATOL = 1e-2
+INT8_SERVE_ROWS = 16  # poses a client asks the int8_static service for
+INT8_EVAL_N = 256  # cli.test --quant int8_static samples on synthetic_small
+INT8_OPS_PER_S = 1.979e15  # one H100 SXM's dense int8 tensor-core peak (data sheet, 700 W)
+
+
+@contextlib.contextmanager
+def counting_int_mm():
+    """Count the ``torch._int_mm`` calls made inside the block."""
+    calls = [0]
+    real = torch._int_mm
+
+    def counted(a, b):
+        calls[0] += 1
+        return real(a, b)
+
+    torch._int_mm = counted
+    try:
+        yield calls
+    finally:
+        torch._int_mm = real
+
+
+def int_mm_bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time of an int8 (m, k) x
+    (k, n) -> int32 product, each operand read once and the result written
+    once at 3.35 TB/s, against 2 m k n int8 operations at 1,979 TOP/s."""
+    by_bytes = (m * k + k * n + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def int8_layer_rows(model, x, reps=INT8_LAYER_REPS) -> list[dict]:
+    """Per encoder conv and fc1/fc2 of the int8 ``model`` on the network
+    input ``x`` (NHWC): ms of the quantize, the patch matrix, the
+    ``_int_mm`` calls and the dequantize (scale, bias, leaky, cast), the
+    whole int8 layer, and the bf16 cuDNN conv / linear on the same input."""
+    import torch.nn.functional as F
+
+    from deepim_tpu_torch.models import flownet as fn
+
+    rows = []
+    c = x.to(model.dtype)
+    with torch.no_grad():
+        for name, cout, k, s in fn.ENCODER:
+            conv = getattr(model, name)
+            b, h, w, cin = c.shape
+            pads = (*fn.same_pad(h, k, s), *fn.same_pad(w, k, s))
+            xq, sx = fn.quantize_int8(c, (1, 2, 3))
+            wq, sk = fn.quantize_int8(conv.weight, (1, 2, 3))
+            w_rows = wq.permute(0, 2, 3, 1).reshape(cout, -1)
+            ho = (h + pads[0] + pads[1] - k) // s + 1
+            wo = (w + pads[2] + pads[3] - k) // s + 1
+            kp = -(-k * k * cin // 8) * 8
+            chunk = max(1, fn.PATCH_BYTES // (ho * wo * kp))
+            parts = [xq[b0:b0 + chunk] for b0 in range(0, b, chunk)]
+            patches = [fn.im2col_int8(part, k, s, pads) for part in parts]
+            acc = fn.conv_int32(xq, wq, s, pads)
+            c_nchw = c.permute(0, 3, 1, 2).contiguous()
+            m = b * ho * wo
+            bound, by = int_mm_bound(m, kp, cout)
+            rows.append({
+                "layer": name, "input": f"{b}x{h}x{w}x{cin}", "m": m, "k": kp, "n": cout,
+                "chunks": len(parts),
+                "quantize_ms": ms_per_call(lambda: fn.quantize_int8(c, (1, 2, 3)), reps),
+                "patch_ms": ms_per_call(
+                    lambda: [fn.im2col_int8(pt, k, s, pads) for pt in parts], reps),
+                "int_mm_ms": ms_per_call(lambda: [fn.int_mm(pt, w_rows) for pt in patches],
+                                         reps),
+                "dequant_ms": ms_per_call(lambda: fn.leaky(
+                    (acc.float() * sx * sk.reshape(cout) + conv.bias).to(model.dtype)), reps),
+                "int8_layer_ms": ms_per_call(lambda: model._qconv(name, c, False), reps),
+                "bf16_ms": ms_per_call(lambda: model._conv(name, c_nchw), reps),
+                "int_mm_bound_ms": bound, "bound_by": by,
+            })
+            del patches, acc, c_nchw
+            c = model._qconv(name, c, False)
+        h = c.reshape(c.shape[0], -1)  # the NHWC flatten of the full-size bottleneck
+        for name in ("fc1", "fc2"):
+            lin = getattr(model, name)
+            xq, sx = fn.quantize_int8(h, (1,))
+            wq, sk = fn.quantize_int8(lin.weight, (1,))
+            bound, by = int_mm_bound(max(h.shape[0], 17), h.shape[1], lin.out_features)
+            acc = fn.int_mm(xq, wq)
+            rows.append({
+                "layer": name, "input": "x".join(map(str, h.shape)), "m": h.shape[0],
+                "k": h.shape[1], "n": lin.out_features, "chunks": 1,
+                "quantize_ms": ms_per_call(lambda: fn.quantize_int8(h, (1,)), reps),
+                "patch_ms": 0.0,
+                "int_mm_ms": ms_per_call(lambda: fn.int_mm(xq, wq), reps),
+                "dequant_ms": ms_per_call(lambda: fn.leaky(
+                    acc.float() * sx * sk.reshape(1, -1) + lin.bias).to(model.dtype), reps),
+                "int8_layer_ms": ms_per_call(lambda: model._qlinear(name, h), reps),
+                "bf16_ms": ms_per_call(lambda: F.linear(
+                    h, lin.weight.to(h.dtype), lin.bias.to(h.dtype)), reps),
+                "int_mm_bound_ms": bound, "bound_by": by,
+            })
+            h = model._qlinear(name, h)
+    return rows
+
+
+def phase_int8(dev, card, rc, counts, assets, obs, init, ks, cls):
+    """Phase 17: int8 inference at full width.  The headline at quant
+    none / int8 / int8_static (calibrated on the headline batch, estimator
+    max) in turns; the per-layer split; the int8 network and refine_poses
+    card against CPU; the int8_static service; cli.test --quant
+    int8_static."""
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.models.flownet import ENCODER
+    from deepim_tpu_torch.refine import gather_class
+    from deepim_tpu_torch.refine.refiner import build_network_inputs
+
+    base = hl.random_model(assets.num_classes).to(dev)
+    models, calib_s = {}, {}
+    for q in hl.QUANT_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[q], peak = peak_memory(lambda q=q: hl.headline_model(
+            base, q, assets, obs, init, ks, cls, hl.QUANT_CALIB))
+        calib_s[q] = (time.perf_counter() - t0, peak)
+    outs, launches, int_mm_calls, peaks = {}, {}, {}, {}
+    for q, m in models.items():
+        hl.run_headline(m, assets, obs, init, ks, cls)  # warm
+        torch.cuda.synchronize()
+        rc.reset_launches()
+        with counting_int_mm() as n_mm:
+            outs[q], peaks[q] = peak_memory(lambda m=m: hl.run_headline(
+                m, assets, obs, init, ks, cls))
+        torch.cuda.synchronize()
+        launches[q] = counts[f"int8_headline_{q}"] = dict(rc.LAUNCHES)
+        int_mm_calls[q] = n_mm[0]
+    rates = {q: [] for q in models}
+    order = list(models)
+    for q in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = [hl.run_headline(models[q], assets, obs, init, ks, cls)
+                   for _ in range(INT8_REPS)]
+        torch.cuda.synchronize()
+        rates[q].append(hl.B * INT8_REPS / (time.perf_counter() - t0))
+        del pending
+    for q in order:
+        out = outs[q]
+        log("int8", run="headline", **hl.headline_fields(q),
+            poses_per_s=statistics.mean(rates[q]), poses_per_s_turns=rates[q],
+            calibration_s=calib_s[q][0], calibration_peak_mib=calib_s[q][1],
+            peak_mib=peaks[q], cols_launches=launches[q]["raster_cols"],
+            sorted_launches=launches[q]["raster_sorted"], int_mm_calls=int_mm_calls[q],
+            scales=len(models[q].act_scales),
+            max_pose_diff_vs_bf16=(out - outs["none"]).abs().max().item(), card=repr(card))
+        if out.shape != (hl.B, 3, 4) or not torch.isfinite(out).all():
+            raise AssertionError(f"quant={q}: refined poses are not finite (B, 3, 4)")
+        if not (out - init).abs().max().item() > 1e-3:
+            raise AssertionError(f"quant={q}: the poses did not move")
+        if launches[q]["raster_cols"] != hl.K_ITERS:
+            raise AssertionError(f"quant={q}: a render missed the cols kernel: {launches[q]}")
+        if q == "none" and int_mm_calls[q]:
+            raise AssertionError("the bf16 headline called _int_mm")
+        if q != "none" and int_mm_calls[q] < hl.K_ITERS * (len(ENCODER) + 2):
+            raise AssertionError(f"quant={q}: {int_mm_calls[q]} _int_mm calls, fewer than "
+                                 "one a quantized layer an iteration")
+
+    # Where an int8 forward's time goes, layer by layer, at 480x640.
+    ab = gather_class(assets, cls)
+    x = build_network_inputs(base, ab, obs, init, ks, hl.SIZE).x
+    for row in int8_layer_rows(models["int8"], x):
+        log("int8", run="layers", size=f"{hl.SIZE[0]}x{hl.SIZE[1]}", **row, card=repr(card))
+    del x
+
+    # The int8 network card against CPU on identical inputs.
+    sl = slice(0, INT8_NET_B)
+    x = build_network_inputs(base, gather_class(assets, cls[sl]), obs[sl], init[sl], ks[sl],
+                             hl.SIZE).x.float()
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = hl.random_model(assets.num_classes, dtype=dtype)
+        for q in ("int8", "int8_static"):
+            m_cpu = cpu.with_act_scales(models[q].act_scales)
+            m_card = copy.deepcopy(m_cpu).to(dev)
+            with torch.no_grad():
+                got, want = m_card(x), m_cpu(x.cpu())
+                c_card, c_cpu = x.to(dtype), x.cpu().to(dtype)
+                for name, *_ in ENCODER:
+                    c_card = m_card._qconv(name, c_card, False)
+                    c_cpu = m_cpu._qconv(name, c_cpu, False)
+            enc = (c_card.cpu().float() - c_cpu.float()).abs().max().item()
+            errs = {key: (got[key].cpu() - want[key]).abs().max().item()
+                    / max(want[key].abs().max().item(), 1e-6) for key in ("rot_raw", "trans")}
+            gated = dtype == torch.float32
+            log("int8", run="network_card_vs_cpu", dtype=str(dtype).split(".")[-1], quant=q,
+                batch=INT8_NET_B, encoder_max_abs_diff=enc, rel_err=errs,
+                rtol=INT8_NET_RTOL if gated else "printed only")
+            if gated and not max(errs.values()) <= INT8_NET_RTOL:
+                raise AssertionError(f"the int8 network ({q}, float32) disagrees card vs CPU")
+
+    # refine_poses with the int8 network, card against CPU.
+    model_f32 = hl.random_model(assets.num_classes, dtype=torch.float32).to(dev)
+    phase_parity(model_f32.with_act_scales(()), assets, obs, init, ks, cls, case="int8",
+                 atol=INT8_PARITY_ATOL)
+
+    phase_int8_service(dev, card, rc, counts)
+    phase_int8_eval(dev, card, counts)
+    phase_decoders(dev, card, assets)
+
+
+def phase_decoders(dev, card, assets):
+    """The image readers' new formats on a 480x640 frame rendered on the
+    card (the headline classes, no background noise): a progressive JPEG
+    (4:2:0, restart markers; libjpeg's default scan script) and an
+    Adam7-interlaced RGB PNG, each decoded in C++ against its plain
+    version (arrays equal), ms a frame."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_release_fixtures as fx
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data import jpeg, png
+    from deepim_tpu_torch.data.synthetic import synthetic_batch
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+
+    k_cam = make_intrinsics(*hl.LINEMOD_K, device=dev)
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(hl.SEED), assets, 1, k_cam,
+                            hl.SIZE, bg_noise=False)
+    frame = (batch["obs_rgb"][0] * 255).round().clamp(0, 255).to(torch.uint8).cpu().numpy()
+    cases = (("progressive_jpeg", fx.encode_jpeg_progressive(frame, 90, "4:2:0",
+                                                             RELEASE_JPEG_RESTART),
+              jpeg.decode_jpeg),
+             ("adam7_png", fx.encode_png_raw(frame, 2, 8, interlace=True), png.decode_png))
+    for name, data, decode in cases:
+        fast = decode(data)
+        t0 = time.perf_counter()
+        plain = decode(data, plain=True)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ms = []
+        for _ in range(DECODE_REPS):
+            t0 = time.perf_counter()
+            decode(data)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        equal = bool(np.array_equal(fast, plain))
+        log("decoders", format=name, size=f"{frame.shape[0]}x{frame.shape[1]}",
+            bytes=len(data), cpp_ms=statistics.median(ms), plain_ms=plain_ms, equal=equal,
+            mean_abs_vs_source=float(np.abs(fast.astype(int) - frame).mean()), card=repr(card))
+        if not equal or fast.shape != frame.shape:
+            raise AssertionError(f"the C++ {name} decoder differs from the plain one")
+
+
+def phase_int8_service(dev, card, rc, counts):
+    """The service at the flagship config with quant int8_static: it
+    calibrates at construction (two synthetic batches of B, generators
+    seeded 4200 and 4201, estimator max_c); 4 clients send 16 poses each
+    at once, each result against a direct refine_poses (atol 1e-3)."""
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.refine import refine_poses
+    from deepim_tpu_torch.serve import PoseRefinerService
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    spec = copy.deepcopy(hl.SERVE_CONFIG)
+    spec["network"] = {**spec.get("network", {}), "quant": "int8_static"}
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = config_from_dict({**spec, "output_dir": out_dir})
+        save_checkpoint(checkpoint_dir(cfg), 1, hl.random_model(4).state_dict())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svc, peak = peak_memory(lambda: PoseRefinerService(cfg, load_checkpoint=True))
+        setup_s = time.perf_counter() - t0
+    try:
+        if svc.model.quant != "int8" or len(svc.model.act_scales) != 12:
+            raise AssertionError("the int8_static service did not calibrate")
+        obs, init, ks, cls = hl.headline_inputs(dev, svc.assets.num_classes, hl.B)
+        host = [t.cpu().numpy() for t in (obs, init, ks, cls)]
+        ref = refine_poses(svc.model, svc.assets, obs, init, ks, cls, num_iters=svc.num_iters,
+                           out_size=hl.SIZE, coarse_iters=cfg.test.coarse_iters).cpu().numpy()
+
+        def request(rows):
+            return lambda: (rows, svc.refine(*(a[rows] for a in host)))
+
+        n = INT8_SERVE_ROWS
+        calls = [[request(slice(n * i, n * (i + 1)))] for i in range(4)]
+        rc.reset_launches()
+        results, wall = _serve_all(svc, calls)
+        counts["int8_service"] = dict(rc.LAUNCHES)
+        err = max(float(np.abs(out - ref[rows]).max()) for res in results
+                  for (rows, out), _ in res)
+        log("int8", run="service", quant="int8_static", calibration_mode="max_c",
+            setup_s=setup_s, setup_peak_mib=peak, scales=len(svc.model.act_scales),
+            requests=len(calls), poses=4 * n, wall_s=wall, launches=counts["int8_service"],
+            max_abs_err_vs_direct=err, atol=PARITY_ATOL, card=repr(card))
+        if not err <= PARITY_ATOL:
+            raise AssertionError("the int8_static service disagrees with a direct refine_poses")
+    finally:
+        svc.close()
+
+
+def phase_int8_eval(dev, card, counts):
+    """cli.test --quant int8_static on synthetic_small.yaml (192x256, B=32,
+    K=4) from a port checkpoint of seed-7 weights (pose heads with the
+    headline's noise): exit 0, the calibration line and the table."""
+    import tempfile
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.train import checkpoint_dir, make_model, save_checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = experiment_yaml(tmp, "synthetic_small.yaml")
+        cfg = update_config(path)
+        model = make_model(cfg, 4, inference=True, generator=torch.Generator().manual_seed(hl.SEED))
+        g = torch.Generator().manual_seed(hl.SEED)
+        with torch.no_grad():
+            for head in (model.fc_rot, model.fc_trans):
+                for p in head.parameters():
+                    p.add_(torch.randn(p.shape, generator=g) * hl.HEAD_SCALE)
+        save_checkpoint(checkpoint_dir(cfg), 1, model.state_dict())
+        text, seconds, launches, peak = run_cli(cli_test.main, [
+            "--cfg", path, "--device", str(dev), "--num-samples", str(INT8_EVAL_N),
+            "--quant", "int8_static"])
+    counts["int8_eval"] = launches
+    calib = [ln for ln in text.splitlines() if ln.startswith("int8_static: calibrated")]
+    log("int8", run="cli_test", config="synthetic_small", quant="int8_static",
+        samples=INT8_EVAL_N, seconds=seconds, peak_mib=peak,
+        refine_poses_per_s=_number(r"\(([\d.]+) poses/s", text), calibration=calib,
+        init_row=_row(text, "[INIT]"), last_row=_row(text, f"[iter {cfg.test.test_iter}]"),
+        launches=launches, card=repr(card))
+    print(text[text.index("[INIT]"):], flush=True)
+    if not calib:
+        raise AssertionError("cli.test --quant int8_static did not calibrate")
+
+
 def png_filters(data: bytes) -> tuple[int, ...]:
     """The distinct row filters of a PNG's rows."""
     import struct
@@ -2913,7 +3280,7 @@ def main() -> int:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-16 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-17 on ``dev``; returns the kernels' JSON record."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
 
@@ -2973,8 +3340,8 @@ def run_phases(dev, card: str) -> list[dict]:
         serial.append(time.perf_counter() - t0)
     log("headline", poses_per_s_pipelined=pipelined,
         poses_per_s_serial_median5=hl.B / statistics.median(serial),
-        serial_ms=[s * 1e3 for s in serial], batch=hl.B, iters=hl.K_ITERS,
-        coarse_iters=hl.COARSE_ITERS, dtype="bf16", card=repr(card))
+        serial_ms=[s * 1e3 for s in serial], **hl.headline_fields("none"), dtype="bf16",
+        card=repr(card))
 
     # The top-k kernel, scene synthesis, the top-k route, and
     # card-against-CPU parity of the scene render and textured refinement.
@@ -3001,6 +3368,10 @@ def run_phases(dev, card: str) -> list[dict]:
 
     # Public releases: converters, validator, JPEG, MXNet weights, runbook.
     phase_releases(dev, card, rc, counts)
+
+    # int8 inference: the headline's quant modes, the int8 products layer by
+    # layer, card against CPU, the int8_static service and cli.test.
+    phase_int8(dev, card, rc, counts, assets, obs, init, ks, cls)
 
     kernels = []
     for kname, src, line, timed_case in (

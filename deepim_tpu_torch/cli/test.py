@@ -31,8 +31,11 @@ last record; padded rows are left out of the tables and the files, and the
 BOP CSV carries the records' scene and image ids (placeholders, jointly,
 when a name is not numeric).
 
-Not ported: int8 inference (``--quant``, ROADMAP A10), which raises
-before any batch is drawn.  One card needs no data-parallel branch
+``--quant int8`` evaluates the dynamic int8 model; ``--quant int8_static``
+first calibrates static activation scales (``models/quant.py
+§calibrate_model``, estimator ``--quant-calib``, default ``max_c``) on the
+first two batches of the test stream, which then go back into the stream
+so every sample is still scored.  One card needs no data-parallel branch
 (multi-GPU is ROADMAP A14).
 """
 
@@ -77,9 +80,13 @@ def parse_args(argv=None):
                    help="override the init translation noise std (metres, all axes; "
                         "max = 3x std)")
     p.add_argument("--quant-calib", default="max_c",
-                   help="int8_static calibration estimator (int8 is not ported yet)")
+                   help="int8_static calibration estimator: max | p999 (99.9%% clip) | "
+                        "max_c / p999_c (per channel, folded into the weights); see "
+                        "models/quant.py")
     p.add_argument("--quant", default="", choices=("", "none", "int8", "int8_static"),
-                   help="override cfg.network.quant (int8 modes are not ported yet)")
+                   help="override cfg.network.quant for this eval: int8 runs the encoder "
+                        "and fc1/fc2 in int8 on the same checkpoint, int8_static first "
+                        "calibrates static activation scales on the first two batches")
     p.add_argument("--seed", type=int, default=-1,
                    help="evaluate a seed-variance training run: suffixes the experiment "
                         "dir with _seed<k> like cli.train --seed (the eval set stays the "
@@ -169,6 +176,26 @@ def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
     # read back once, after the last batch: no host sync between batches
     return {"traj": torch.cat(trajs, dim=1), "pose_gt": torch.cat(gt_parts).cpu().numpy(),
             "class_idx": torch.cat(cls_parts).cpu().numpy(), "vis_rows": vis_rows}
+
+
+def calibrated(model, assets, batches, k_cam: torch.Tensor, out_size: tuple[int, int],
+               num_iters: int, mode: str):
+    """The int8_static model calibrated on the first two of ``batches``
+    (moved to the assets' device, since a loader reuses its host slots),
+    and the stream with those two put back in front."""
+    import itertools
+
+    from deepim_tpu_torch.data.lm6d import to_device
+    from deepim_tpu_torch.models.quant import calibrate_model
+
+    dev = assets.points.device
+    batches = iter(batches)
+    calib = [to_device(b, dev) for b in itertools.islice(batches, 2)]
+    model = calibrate_model(model, assets, calib, k_cam.to(dev), out_size,
+                            num_iters=num_iters, mode=mode)
+    print(f"int8_static: calibrated activation scales on {len(calib)} batches "
+          f"(mode={mode})")
+    return model, itertools.chain(calib, batches)
 
 
 def _sync(dev: torch.device) -> None:
@@ -275,6 +302,7 @@ def main(argv=None) -> int:
     from deepim_tpu_torch.cli.train import _device, load_assets_and_names
     from deepim_tpu_torch.config import update_config
     from deepim_tpu_torch.eval import evaluate_poses, format_table, write_bop_csv
+    from deepim_tpu_torch.models.quant import CALIB_MODES
     from deepim_tpu_torch.raster.camera import make_intrinsics
     from deepim_tpu_torch.train.checkpoint import (
         checkpoint_dir, latest_step, load_params, orbax_dir, require_port_checkpoint,
@@ -285,11 +313,12 @@ def main(argv=None) -> int:
     cfg = update_config(args.cfg)
     if args.seed >= 0:
         cfg = dataclasses.replace(cfg, experiment=f"{cfg.experiment}_seed{args.seed}")
+    if args.quant:
+        cfg = dataclasses.replace(cfg, network=dataclasses.replace(cfg.network,
+                                                                   quant=args.quant))
     d, t = cfg.dataset, cfg.train
-    if (args.quant or cfg.network.quant) not in ("", "none"):
-        raise NotImplementedError(
-            f"--quant {args.quant or cfg.network.quant}: int8 inference is not ported yet "
-            "(ROADMAP A10)")
+    if cfg.network.quant == "int8_static" and args.quant_calib not in CALIB_MODES:
+        raise SystemExit(f"--quant-calib {args.quant_calib!r} is not one of {CALIB_MODES}")
     if d.obj_ids and len(d.obj_ids) != len(d.objects):
         # before any batch: --save-poses maps class indices through obj_ids
         raise SystemExit(f"dataset.obj_ids ({len(d.obj_ids)} entries) must be parallel "
@@ -332,8 +361,6 @@ def main(argv=None) -> int:
     bs = cfg.test.batch_size
     want_depth = bool(n_cfg.input_depth) or args.hypotheses > 1
     records = None
-    _sync(dev)
-    t0 = time.time()
     if generated(d.name):
         n = args.num_samples or max(2048, 8 * bs)
         n = num_real = (n // bs) * bs
@@ -344,6 +371,11 @@ def main(argv=None) -> int:
                                             pin_memory=dev.type == "cuda")
         num_real = len(records)
         source = "PNG loading included"
+    if cfg.network.quant == "int8_static" and not args.no_refine:
+        model, batches = calibrated(model, assets, batches, k_cam, out_size,
+                                    cfg.test.test_iter, args.quant_calib)
+    _sync(dev)
+    t0 = time.time()
     out = refine_batches(
         model, assets, batches, k_cam, cfg.test.test_iter, out_size,
         coarse_iters=coarse_iters, coarse_size=coarse_size, hypotheses=args.hypotheses,

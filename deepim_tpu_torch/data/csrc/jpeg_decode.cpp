@@ -1,4 +1,4 @@
-// Baseline (sequential, Huffman-coded, 8-bit) JPEG decoding, host code.
+// Baseline and progressive (Huffman-coded, 8-bit) JPEG decoding, host code.
 //
 // Three stages, each a C function bound with ctypes (a call runs without
 // the GIL), each the counterpart of a numpy/Python stage in jpeg.py:
@@ -6,6 +6,11 @@
 //   deepim_jpeg_decode_scan  entropy-decode one scan's segment (restart
 //                            markers included) into quantized coefficients
 //                            in natural order, int16, 64 per block;
+//                            deepim_jpeg_decode_prog_scan does the same for
+//                            one scan of a progressive file (jdphuff.c's DC
+//                            first / refine and AC first / refine, with EOB
+//                            runs), adding to the coefficients the earlier
+//                            scans left;
 //   deepim_jpeg_idct         dequantize and inverse-DCT one component with
 //                            libjpeg's integer "islow" IDCT (jidctint.c);
 //   deepim_jpeg_finish       upsample chroma with libjpeg's fancy
@@ -301,6 +306,130 @@ extern "C" int deepim_jpeg_decode_scan(const uint8_t* data, int64_t len, int32_t
             if (k > 63) return -4;
             blk[kNatural[k]] = (int16_t)extend(b.get(sz), sz);
             ++k;
+          }
+        }
+      }
+    }
+  }
+  return b.overran() ? -2 : 0;
+}
+
+// One scan of a progressive file: spectral band ss..se, successive
+// approximation ah (the previous point transform, 0 on a first scan) and al
+// (this scan's); the arguments otherwise as deepim_jpeg_decode_scan's.  A
+// DC scan may interleave components; an AC scan has one.  Returns those
+// codes (-2 where the data ran out before a bad code or run), or -5 for a
+// band that is no band.
+extern "C" int deepim_jpeg_decode_prog_scan(const uint8_t* data, int64_t len, int32_t ncomp,
+                                            const int64_t* comp, const uint8_t* huff,
+                                            int64_t mcus_x, int64_t mcus_y, int64_t restart,
+                                            int32_t ss, int32_t se, int32_t ah, int32_t al,
+                                            int16_t* coefs) {
+  if (ss > se || se > 63 || (ss == 0 && se != 0) || (ss > 0 && ncomp != 1) || al > 13)
+    return -5;
+  Huff tables[8];
+  for (int i = 0; i < 8; ++i) build_huff(huff + 272 * i, tables[i]);
+  Bits b{data, data + len};
+  int pred[4] = {0, 0, 0, 0};
+  int64_t eobrun = 0;
+  const int p1 = 1 << al, m1 = -(1 << al);
+  const int64_t total = mcus_x * mcus_y;
+  int rst = 0;
+  for (int64_t m = 0; m < total; ++m) {
+    if (restart && m && m % restart == 0) {
+      if (b.overran()) return -2;
+      b.n = 0;
+      if (!b.at_marker) {
+        if (b.p + 1 >= b.end || b.p[0] != 0xFF) return -3;
+      }
+      if (b.p + 1 >= b.end || b.p[1] != 0xD0 + (rst & 7)) return -3;
+      b.p += 2;
+      b.at_marker = false;
+      b.acc = 0;
+      b.fed_real = b.fed_zero = 0;
+      ++rst;
+      for (int c = 0; c < 4; ++c) pred[c] = 0;
+      eobrun = 0;
+    }
+    const int64_t my = m / mcus_x, mx = m % mcus_x;
+    for (int c = 0; c < ncomp; ++c) {
+      const int64_t* ci = comp + 6 * c;
+      const Huff& dc = tables[ci[2]];
+      const Huff& ac = tables[4 + ci[3]];
+      for (int64_t by = 0; by < ci[1]; ++by) {
+        for (int64_t bx = 0; bx < ci[0]; ++bx) {
+          int16_t* blk = coefs + ci[4] + ((my * ci[1] + by) * ci[5] + mx * ci[0] + bx) * 64;
+          if (ss == 0) {
+            if (ah == 0) {  // DC first: the difference, shifted up by al
+              const int sz = b.decode(dc);
+              if (sz < 0) return b.overran() ? -2 : -1;
+              pred[c] += extend(b.get(sz), sz);
+              blk[0] = (int16_t)(int)((unsigned)pred[c] << al);
+            } else if (b.get(1)) {  // DC refine: one more bit
+              blk[0] = (int16_t)(blk[0] | p1);
+            }
+            continue;
+          }
+          if (ah == 0) {  // AC first
+            if (eobrun > 0) {
+              --eobrun;
+              continue;
+            }
+            for (int k = ss; k <= se; ++k) {
+              const int rs = b.decode(ac);
+              if (rs < 0) return b.overran() ? -2 : -1;
+              const int r = rs >> 4, sz = rs & 15;
+              if (sz) {
+                k += r;
+                if (k > se) return b.overran() ? -2 : -4;
+                blk[kNatural[k]] = (int16_t)(int)((unsigned)extend(b.get(sz), sz) << al);
+              } else if (r == 15) {
+                k += 15;  // ZRL
+              } else {  // an EOB run of 2^r + the next r bits blocks, this one first
+                eobrun = ((int64_t)1 << r) + b.get(r) - 1;
+                break;
+              }
+            }
+            continue;
+          }
+          // AC refine: new coefficients of magnitude 1 (at al), and one
+          // correction bit for each coefficient already nonzero
+          int k = ss;
+          auto correct = [&](int16_t* coef) {
+            if (b.get(1) && (*coef & p1) == 0) *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+          };
+          if (eobrun == 0) {
+            for (; k <= se; ++k) {
+              const int rs = b.decode(ac);
+              if (rs < 0) return b.overran() ? -2 : -1;
+              int r = rs >> 4, value = 0;
+              if (rs & 15) {
+                value = b.get(1) ? p1 : m1;  // the size is 1 in a valid file
+              } else if (r != 15) {
+                eobrun = ((int64_t)1 << r) + b.get(r);
+                break;
+              }
+              do {  // skip r zero coefficients, correcting the nonzero ones passed
+                int16_t* coef = blk + kNatural[k];
+                if (*coef != 0) {
+                  correct(coef);
+                } else if (--r < 0) {
+                  break;
+                }
+                ++k;
+              } while (k <= se);
+              if (value) {
+                if (k > se) return b.overran() ? -2 : -4;
+                blk[kNatural[k]] = (int16_t)value;
+              }
+            }
+          }
+          if (eobrun > 0) {  // the rest of the band: corrections only
+            for (; k <= se; ++k) {
+              int16_t* coef = blk + kNatural[k];
+              if (*coef != 0) correct(coef);
+            }
+            --eobrun;
           }
         }
       }

@@ -1,4 +1,4 @@
-"""Baseline JPEG reading: a Huffman-coded, 8-bit, sequential decoder.
+"""JPEG reading: a Huffman-coded, 8-bit decoder, baseline and progressive.
 
 The port's JPEG reader.  The original LINEMOD release ships its frames as
 ``color{i}.jpg`` and BOP's training splits as ``.jpg``; the reference reads
@@ -15,9 +15,17 @@ with libjpeg-turbo's defaults, and this module does what those are:
 
 It reads 8-bit grey and three-component images (YCbCr, or RGB where an
 Adobe marker or the component ids say so) at 4:4:4, 4:2:2 and 4:2:0, one
-scan or several, with restart markers.  Progressive, lossless,
-hierarchical, arithmetic-coded, 12-bit and four-component (CMYK/YCCK)
-files raise ``ValueError`` naming the marker, as does a truncated file.
+scan or several, with restart markers, sequential (SOF0/SOF1) or
+progressive (SOF2: DC first and refine scans, AC first scans with EOB
+runs, AC refine scans, each adding to the coefficients the one IDCT
+reads; the Huffman tables a scan uses are those defined before it).
+libjpeg smooths blocks of a progressive image only while some
+coefficient's refinement is incomplete (``jdcoefct.c §smoothing_ok``); a
+fully refined file, which every encoder's default script writes, is not
+smoothed, so the pixels stay PIL's; one whose coefficients 0-9 stop short
+of the last refinement raises.  Lossless, hierarchical,
+arithmetic-coded, 12-bit and four-component (CMYK/YCCK) files raise
+``ValueError`` naming the marker, as does a truncated file.
 
 The markers are parsed here; ``csrc/jpeg_decode.cpp`` does the rest in
 three C functions (entropy decoding of a scan, the IDCT, upsampling and
@@ -54,7 +62,7 @@ NATURAL = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
 _UNSUPPORTED = {
-    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
     0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
     0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "arithmetic-coded JPEG (SOF11)",
@@ -63,7 +71,8 @@ _UNSUPPORTED = {
 }
 _ERRORS = {-1: "bad Huffman code", -2: "truncated JPEG: the scan's data ran out",
            -3: "missing or out-of-order restart marker",
-           -4: "corrupt JPEG: a run past coefficient 63"}
+           -4: "corrupt JPEG: a run past the scan's last coefficient",
+           -5: "corrupt JPEG: a progressive scan with a bad spectral band"}
 
 
 @dataclass
@@ -83,6 +92,8 @@ class Scan:
     comps: list[tuple[int, int, int]]  # (component index, DC table, AC table)
     restart: int
     data: bytes
+    huff: np.ndarray  # the (8, 272) tables defined before this scan
+    band: tuple[int, int, int, int] = (0, 63, 0, 0)  # Ss, Se, Ah, Al
 
 
 @dataclass
@@ -92,8 +103,8 @@ class Frame:
     comps: list[Component]
     qt: dict[int, np.ndarray] = field(default_factory=dict)  # natural order, uint16
     scans: list[Scan] = field(default_factory=list)
-    huff: np.ndarray = field(default_factory=lambda: np.zeros((8, 272), np.uint8))
     transform: int = 1  # 0 grey, 1 YCbCr, 2 RGB
+    progressive: bool = False
 
 
 def _scan_end(data: bytes, pos: int) -> int:
@@ -140,8 +151,9 @@ def parse(data: bytes) -> Frame:
             raise ValueError(f"truncated JPEG: marker 0x{m:02X} runs past the end")
         pos += n
         if m in _UNSUPPORTED:
-            raise ValueError(f"unsupported {_UNSUPPORTED[m]}: only baseline JPEG (SOF0) is read")
-        if m in (0xC0, 0xC1):
+            raise ValueError(f"unsupported {_UNSUPPORTED[m]}: only baseline and progressive "
+                             "Huffman JPEG (SOF0-SOF2) is read")
+        if m in (0xC0, 0xC1, 0xC2):
             precision, hh, ww, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"unsupported {precision}-bit JPEG (SOF{m - 0xC0}): "
@@ -153,7 +165,7 @@ def parse(data: bytes) -> Frame:
                 raise ValueError("unsupported JPEG: height 0 (DNL marker)")
             comps = [Component(body[6 + 3 * i], body[7 + 3 * i] >> 4, body[7 + 3 * i] & 15,
                                body[8 + 3 * i]) for i in range(nc)]
-            frame = Frame(ww, hh, comps)
+            frame = Frame(ww, hh, comps, progressive=m == 0xC2)
         elif m == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -195,16 +207,22 @@ def parse(data: bytes) -> Frame:
                     raise ValueError(f"corrupt JPEG: scan names component {cid}")
                 sel.append((ids[cid], tables >> 4, tables & 15))
             ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
-            if (ss, se, ahal) != (0, 63, 0):
+            band = (ss, se, ahal >> 4, ahal & 15)
+            if not frame.progressive and band != (0, 63, 0, 0):
                 raise ValueError("unsupported progressive scan in a baseline JPEG")
+            if frame.progressive and (ss > se or se > 63 or (ss == 0) != (se == 0)
+                                      or (ss > 0 and ns != 1) or band[3] > 13):
+                raise ValueError(_ERRORS[-5])
             end = _scan_end(data, pos)
-            scans.append(Scan(sel, restart, data[pos:end]))
+            scans.append(Scan(sel, restart, data[pos:end], huff.copy(), band))
             pos = end
     if frame is None:
         raise ValueError("not a JPEG image: no SOF marker")
     if not scans:
         raise ValueError("truncated JPEG: no scan")
-    frame.qt, frame.scans, frame.huff = qt, scans, huff
+    if frame.progressive:
+        _check_refined(frame, scans)
+    frame.qt, frame.scans = qt, scans
     if len(frame.comps) == 1:
         frame.transform = 0
     elif adobe is not None and not jfif:
@@ -229,6 +247,21 @@ def parse(data: bytes) -> Frame:
                              f"{[(c.h, c.v) for c in frame.comps]}: 4:4:4, 4:2:2 and "
                              "4:2:0 are read")
     return frame
+
+
+def _check_refined(frame: Frame, scans: list[Scan]) -> None:
+    """Raise unless every component's coefficients 0-9 end at point
+    transform 0: otherwise libjpeg smooths the blocks
+    (``jdcoefct.c §smoothing_ok``, which reads the first 10), and the
+    pixels would not be PIL's."""
+    bits = np.full((len(frame.comps), 64), -1)
+    for scan in scans:
+        ss, se, _, al = scan.band
+        for ci, _, _ in scan.comps:
+            bits[ci, ss:se + 1] = al
+    if (bits[:, :10] != 0).any():
+        raise ValueError("unsupported progressive JPEG whose coefficients 0-9 are not fully "
+                         "refined: libjpeg smooths such blocks")
 
 
 def _scan_geometry(frame: Frame, scan: Scan) -> tuple[int, int, list[tuple[int, int]]]:
@@ -280,8 +313,8 @@ def decode_scan_plain(frame: Frame, scan: Scan, coefs: list[np.ndarray]) -> None
     """Entropy-decode ``scan`` into ``coefs`` (one (bh * bw, 64) int16 array
     of natural-order coefficients a component), in Python."""
     mx_n, my_n, hv = _scan_geometry(frame, scan)
-    dcs = {t: _lookup(frame.huff[t]) for _, t, _ in scan.comps}
-    acs = {t: _lookup(frame.huff[4 + t]) for _, _, t in scan.comps}
+    dcs = {t: _lookup(scan.huff[t]) for _, t, _ in scan.comps}
+    acs = {t: _lookup(scan.huff[4 + t]) for _, _, t in scan.comps}
     per = [(coefs[ci], frame.comps[ci].bw, dcs[td], acs[ta], h, v)
            for (ci, td, ta), (h, v) in zip(scan.comps, hv)]
     natural = NATURAL.tolist()
@@ -342,6 +375,150 @@ def decode_scan_plain(frame: Frame, scan: Scan, coefs: list[np.ndarray]) -> None
                             k += 1
             if p > nbits:
                 raise ValueError(_ERRORS[-2])
+
+
+class _BitReader:
+    """MSB-first bits of one restart interval (stuffing removed), read past
+    its end as zeros; ``p`` counts the bits taken."""
+
+    def __init__(self, seg: bytes):
+        self.nbits = 8 * len(seg)
+        self.seg = seg + bytes(8)
+        self.p = 0
+
+    def peek32(self) -> int:
+        i = self.p >> 3
+        return (int.from_bytes(self.seg[i:i + 5], "big") >> (8 - (self.p & 7))) & 0xFFFFFFFF
+
+    def get(self, n: int) -> int:
+        if n == 0:
+            return 0
+        v = self.peek32() >> (32 - n)
+        self.p += n
+        return v
+
+    def decode(self, table) -> int:
+        hit = table[self.peek32() >> 16]
+        if hit is None:
+            raise ValueError(_ERRORS[-1])
+        self.p += hit[0]
+        return hit[1]
+
+
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
+
+
+def decode_prog_scan_plain(frame: Frame, scan: Scan, coefs: list[np.ndarray]) -> None:
+    """Entropy-decode one scan of a progressive file into ``coefs`` (see
+    :func:`decode_scan_plain`), adding to what earlier scans left: the
+    plain version of ``deepim_jpeg_decode_prog_scan``."""
+    mx_n, my_n, hv = _scan_geometry(frame, scan)
+    dcs = {t: _lookup(scan.huff[t]) for _, t, _ in scan.comps}
+    acs = {t: _lookup(scan.huff[4 + t]) for _, _, t in scan.comps}
+    per = [(coefs[ci], frame.comps[ci].bw, dcs[td], acs[ta], h, v)
+           for (ci, td, ta), (h, v) in zip(scan.comps, hv)]
+    total = mx_n * my_n
+    restart = scan.restart or total
+    intervals = _intervals(scan.data)
+    if len(intervals) < -(-total // restart):
+        raise ValueError(_ERRORS[-2])
+    for start in range(0, total, restart):
+        bits = _BitReader(intervals[start // restart])
+        try:
+            _prog_interval(bits, per, range(start, min(start + restart, total)), mx_n,
+                           scan.band)
+        except ValueError:
+            if bits.p > bits.nbits:  # a bad code read from the zeros past the data
+                raise ValueError(_ERRORS[-2]) from None
+            raise
+        if bits.p > bits.nbits:
+            raise ValueError(_ERRORS[-2])
+
+
+def _prog_interval(bits: _BitReader, per: list, mcus: range, mx_n: int, band) -> None:
+    """The MCUs ``mcus`` of one restart interval of a progressive scan (DC
+    predictions and the EOB run start afresh)."""
+    ss, se, ah, al = band
+    natural = NATURAL.tolist()
+    p1, m1 = 1 << al, -(1 << al)
+    pred = [0] * len(per)
+    eobrun = 0
+    for m in mcus:
+        my, mx = divmod(m, mx_n)
+        for c, (plane, bw, dc, ac, h, v) in enumerate(per):
+            for by in range(v):
+                row = (my * v + by) * bw + mx * h
+                for bx in range(h):
+                    blk = plane[row + bx]
+                    if ss == 0 and ah == 0:  # DC first: the difference, shifted up by al
+                        s = bits.decode(dc)
+                        pred[c] += _extend(bits.get(s), s)
+                        blk[0] = pred[c] * p1
+                    elif ss == 0:  # DC refine: one more bit
+                        if bits.get(1):
+                            blk[0] |= p1
+                    elif ah == 0:
+                        eobrun = _ac_first(bits, ac, blk, natural, ss, se, al, eobrun)
+                    else:
+                        eobrun = _ac_refine(bits, ac, blk, natural, ss, se, p1, m1, eobrun)
+
+
+def _ac_first(bits, ac, blk, natural, ss, se, al, eobrun) -> int:
+    if eobrun > 0:
+        return eobrun - 1
+    k = ss
+    while k <= se:
+        rs = bits.decode(ac)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            if k > se:
+                raise ValueError(_ERRORS[-4])
+            blk[natural[k]] = _extend(bits.get(s), s) * (1 << al)
+        elif r == 15:
+            k += 15
+        else:
+            return (1 << r) + bits.get(r) - 1
+        k += 1
+    return 0
+
+
+def _ac_refine(bits, ac, blk, natural, ss, se, p1, m1, eobrun) -> int:
+    def correct(i):
+        if bits.get(1) and (int(blk[i]) & p1) == 0:
+            blk[i] += p1 if blk[i] >= 0 else m1
+
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            rs = bits.decode(ac)
+            r, value = rs >> 4, 0
+            if rs & 15:
+                value = p1 if bits.get(1) else m1
+            elif r != 15:
+                eobrun = (1 << r) + bits.get(r)
+                break
+            while k <= se:  # skip r zero coefficients, correcting nonzero ones
+                i = natural[k]
+                if blk[i] != 0:
+                    correct(i)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if value:
+                if k > se:
+                    raise ValueError(_ERRORS[-4])
+                blk[natural[k]] = value
+            k += 1
+    if eobrun > 0:
+        for kk in range(k, se + 1):
+            if blk[natural[kk]] != 0:
+                correct(natural[kk])
+        eobrun -= 1
+    return eobrun
 
 
 _IDCT = dict(F0_298631336=2446, F0_390180644=3196, F0_541196100=4433, F0_765366865=6270,
@@ -468,6 +645,9 @@ def _decoder():
             p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
             lib.deepim_jpeg_decode_scan.argtypes = [p, i64, i32, p, p, i64, i64, i64, p]
             lib.deepim_jpeg_decode_scan.restype = ctypes.c_int
+            lib.deepim_jpeg_decode_prog_scan.argtypes = [p, i64, i32, p, p, i64, i64, i64,
+                                                         i32, i32, i32, i32, p]
+            lib.deepim_jpeg_decode_prog_scan.restype = ctypes.c_int
             lib.deepim_jpeg_idct.argtypes = [p, i64, i64, p, p]
             lib.deepim_jpeg_idct.restype = None
             lib.deepim_jpeg_finish.argtypes = [p, p, p, i32, i32, i64, i64, p]
@@ -481,14 +661,19 @@ def _decode_cpp(frame: Frame) -> np.ndarray:
     sizes = [c.bh * c.bw * 64 for c in frame.comps]
     offsets = np.cumsum([0] + sizes[:-1])
     coefs = np.zeros(sum(sizes), np.int16)
-    huff = np.ascontiguousarray(frame.huff)
     for scan in frame.scans:
         mx_n, my_n, hv = _scan_geometry(frame, scan)
         info = np.array([[h, v, td, ta, offsets[ci], frame.comps[ci].bw]
                          for (ci, td, ta), (h, v) in zip(scan.comps, hv)], np.int64)
-        code = lib.deepim_jpeg_decode_scan(scan.data, len(scan.data), len(scan.comps),
-                                           info.ctypes.data, huff.ctypes.data, mx_n, my_n,
-                                           scan.restart, coefs.ctypes.data)
+        huff = np.ascontiguousarray(scan.huff)
+        if frame.progressive:
+            code = lib.deepim_jpeg_decode_prog_scan(
+                scan.data, len(scan.data), len(scan.comps), info.ctypes.data,
+                huff.ctypes.data, mx_n, my_n, scan.restart, *scan.band, coefs.ctypes.data)
+        else:
+            code = lib.deepim_jpeg_decode_scan(scan.data, len(scan.data), len(scan.comps),
+                                               info.ctypes.data, huff.ctypes.data, mx_n, my_n,
+                                               scan.restart, coefs.ctypes.data)
         if code:
             raise ValueError(_ERRORS[code])
     planes = []
@@ -521,7 +706,7 @@ def decode_jpeg(data: bytes, plain: bool = False) -> np.ndarray:
         return _decode_cpp(frame)
     coefs = [np.zeros((c.bh * c.bw, 64), np.int16) for c in frame.comps]
     for scan in frame.scans:
-        decode_scan_plain(frame, scan, coefs)
+        (decode_prog_scan_plain if frame.progressive else decode_scan_plain)(frame, scan, coefs)
     planes = [idct_plain(cf, c.bh, c.bw, frame.qt[c.tq]) for cf, c in zip(coefs, frame.comps)]
     return finish_plain(frame, planes)
 

@@ -6,10 +6,16 @@ the pose error metrics and the (numpy) symmetry sets.
 
 from deepim_tpu_torch.geometry.delta_pose import DeltaPose, apply_delta, calc_delta
 from deepim_tpu_torch.geometry.rotations import (
+    axangle2mat,
+    axangle2quat,
     euler2mat,
     euler2quat,
+    mat2euler,
     mat2quat,
+    quat2euler,
     quat2mat,
+    quat_conjugate,
+    quat_mul,
     quat_normalize,
     quat_slerp,
     random_quat,

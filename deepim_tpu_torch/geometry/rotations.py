@@ -1,8 +1,10 @@
 """Rotation parameterizations: quaternion / matrix / euler.
 
 Port of ``deepim_tpu/geometry/rotations.py`` (``quat_normalize``,
-``quat2mat``, ``mat2quat``, ``euler2mat``, ``euler2quat``, ``random_quat``,
-``quat_slerp``, ``rotation_angle``).
+``quat_conjugate``, ``quat_mul``, ``quat2mat``, ``mat2quat``,
+``euler2mat``, ``mat2euler``, ``euler2quat``, ``quat2euler``,
+``axangle2quat``, ``axangle2mat``, ``random_quat``, ``quat_slerp``,
+``rotation_angle``).
 
 Conventions: quaternions are ``(w, x, y, z)``, scalar-first; euler angles are
 static ``sxyz`` (``R = Rz(az) @ Ry(ay) @ Rx(ax)``).  Every function maps
@@ -19,6 +21,26 @@ _EPS = 1e-8
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     """Normalize quaternion(s) to unit norm; (..., 4) -> (..., 4)."""
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (= inverse for unit quats); (..., 4) -> (..., 4)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product q1 (x) q2: the rotation R(q1) @ R(q2)."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
 
 
 def quat2mat(q: torch.Tensor) -> torch.Tensor:
@@ -83,9 +105,38 @@ def euler2mat(ax: torch.Tensor, ay: torch.Tensor, az: torch.Tensor) -> torch.Ten
     return m.reshape(ax.shape + (3, 3))
 
 
+def mat2euler(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., 3, 3) -> (ax, ay, az) static-sxyz euler angles (radians); at
+    gimbal lock (``cy <= 1e-6``) the ax-carrying solution, az = 0."""
+    cy = torch.sqrt(m[..., 0, 0] ** 2 + m[..., 1, 0] ** 2)
+    safe = cy > 1e-6
+    ax = torch.where(safe, torch.atan2(m[..., 2, 1], m[..., 2, 2]),
+                     torch.atan2(-m[..., 1, 2], m[..., 1, 1]))
+    ay = torch.atan2(-m[..., 2, 0], cy)
+    az = torch.where(safe, torch.atan2(m[..., 1, 0], m[..., 0, 0]), 0.0)
+    return ax, ay, az
+
+
 def euler2quat(ax: torch.Tensor, ay: torch.Tensor, az: torch.Tensor) -> torch.Tensor:
     """Static-sxyz euler -> quaternion (w, x, y, z)."""
     return mat2quat(euler2mat(ax, ay, az))
+
+
+def quat2euler(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quaternion -> static-sxyz euler angles."""
+    return mat2euler(quat2mat(q))
+
+
+def axangle2quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis (..., 3) (need not be unit) and angle (...,) -> quaternion."""
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True).clamp_min(_EPS)
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], dim=-1)
+
+
+def axangle2mat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Axis-angle -> rotation matrix."""
+    return quat2mat(axangle2quat(axis, angle))
 
 
 def random_quat(generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:

@@ -11,6 +11,13 @@ four meshes a 64x64 procedural texture (``texturize(mesh, seed=i)``), a
 protocol of the port only.  ``chip_smoke.py`` and
 :mod:`deepim_tpu_torch.profile_headline` drive the port through it.
 
+``quant`` (the reference's ``BENCH_QUANT``/``BENCH_QUANT_CALIB``,
+``bench.py:39-51, :271-304``) picks the network: ``none`` (bf16), ``int8``
+(dynamic scales) or ``int8_static`` (scales calibrated on the headline
+batch itself over the K iterations, estimator ``max`` by default);
+anything else raises before any work.  :func:`headline_fields` carries
+``quant`` into the headline's line.
+
 ``SERVE_CONFIG`` is the serving protocol: the flagship experiment
 ``experiments/cfgs/synthetic_all_c2f.yaml`` as a dict, its device batch
 raised to the bench's B.  ``TRAIN_CONFIG`` is the training protocol: the
@@ -28,6 +35,7 @@ import torch
 from deepim_tpu_torch.data.pairs import perturb_poses, sample_poses_in_frustum
 from deepim_tpu_torch.geometry.symmetry import rot_z_syms
 from deepim_tpu_torch.models.flownet import DeepIMFlowNet, bottleneck_grid
+from deepim_tpu_torch.models.quant import CALIB_MODES, calibrate_model
 from deepim_tpu_torch.raster.camera import make_intrinsics
 from deepim_tpu_torch.raster.mesh import (
     box_mesh, cylinder_mesh, decimate_mesh, icosphere_mesh, texturize, torus_mesh)
@@ -41,6 +49,8 @@ SEED = 7
 LINEMOD_K = (572.4114, 573.5704, 325.2611, 242.049)  # fx, fy, cx, cy
 TEXTURE_SIZE = (64, 64)
 HEAD_SCALE = 0.02  # noise on the zero pose heads: poses move a little per step
+QUANT_MODES = ("none", "int8", "int8_static")
+QUANT_CALIB = "max"  # bench.py's BENCH_QUANT_CALIB default
 
 # experiments/cfgs/synthetic_all_c2f.yaml with test.batch_size = B.
 SERVE_CONFIG = {
@@ -118,6 +128,39 @@ def random_model(num_classes: int = 4, dtype: torch.dtype = torch.bfloat16,
             for p in head.parameters():
                 p.add_(torch.randn(p.shape, generator=g) * head_scale)
     return model
+
+
+def check_quant(quant: str, calib_mode: str = QUANT_CALIB) -> None:
+    """Fail fast on a mode the headline does not know: a typo must not
+    record a "quantized" run that measured the plain path."""
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant={quant!r} is not one of {QUANT_MODES}")
+    if calib_mode not in CALIB_MODES:
+        raise ValueError(f"calib_mode={calib_mode!r} is not one of {CALIB_MODES}")
+
+
+def headline_model(model: DeepIMFlowNet, quant: str, assets, obs, init, ks, cls,
+                   calib_mode: str = QUANT_CALIB) -> DeepIMFlowNet:
+    """``model`` at ``quant``: itself for ``none``, its dynamic int8 twin,
+    or the int8 twin calibrated on this batch (``init`` walked through the
+    K iterations at full size, as ``bench.py`` does).  Parameters are
+    shared."""
+    check_quant(quant, calib_mode)
+    if quant == "none":
+        return model
+    dynamic = model.with_act_scales(())
+    if quant == "int8":
+        return dynamic
+    batch = {"obs_rgb": obs, "pose_src": init, "class_idx": cls}
+    return calibrate_model(dynamic, assets, [batch], ks[0], SIZE, num_iters=K_ITERS,
+                           mode=calib_mode)
+
+
+def headline_fields(quant: str, calib_mode: str = QUANT_CALIB) -> dict:
+    """The protocol's fields of a headline line, ``quant`` among them."""
+    check_quant(quant, calib_mode)
+    return {"batch": B, "iters": K_ITERS, "coarse_iters": COARSE_ITERS, "quant": quant,
+            "quant_calib": calib_mode if quant == "int8_static" else None}
 
 
 def run_headline(model, assets, obs, init, ks, cls, return_all: bool = False):

@@ -7,9 +7,23 @@ head (``mask_conv``, ``mask_pred``) that training supervises, the flatten
 pose head with the ``head_grid`` resize or the ``gap`` head, fc1/fc2, the
 float32 fc_rot/fc_trans heads and ``trans_scale``; plus
 ``bottleneck_grid``, ``select_class``, ``decode_rot``, ``network_input``
-and ``normalize_depth``.  The space-to-depth stem and the fast
-deconvolution (TPU layouts of the same parameters, off by default in the
-reference) and int8 are not ported.
+and ``normalize_depth``; and int8 inference (``quant="int8"``): the
+quantize helpers, :func:`int8_conv` and :func:`int8_linear` for the
+encoder and fc1/fc2, dynamic or calibrated static activation scales
+(``act_scales``, see ``models/quant.py``) and the calibration recorder.
+The space-to-depth stem and the fast deconvolution (TPU layouts of the
+same parameters, off by default in the reference) are not ported.
+
+int8 follows the reference's ``Conv``/``QDense`` int8 branches number for
+number: symmetric scales (zero point 0), activations per sample or
+static, weights per output channel, per-channel static scales folded into
+the float weight before it is quantized, and the products int8 x int8 ->
+int32 (exact while ``K * 127**2 < 2**31``), here ``torch._int_mm`` on a
+patch matrix built from strided views of the int8 activations (cuBLASLt
+on the card).  The int8 encoder runs NHWC, the reference's layout, so the
+patches and the flatten need no permute.  A conv's output is
+``leaky((y + bias).to(dtype))`` and an FC's ``leaky(y + bias).to(dtype)``
+(float32 leaky), as in the reference.
 
 Numbers follow the reference's flax modules:
 
@@ -36,8 +50,12 @@ Numbers follow the reference's flax modules:
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 from typing import Sequence
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +105,218 @@ def _fan_in(module: nn.Module, p: torch.Tensor) -> int:
     return p[0].numel()
 
 
+# -- int8 inference ------------------------------------------------------------
+
+#: Bytes of int8 patch matrix built at a time: a conv's batch is cut into
+#: chunks under this (conv1 at B=128, 480x640 would need 2.9 GB at once).
+PATCH_BYTES = 1 << 30
+#: The fewest rows of the first operand and the multiple of the depth and
+#: of the width that ``torch._int_mm`` takes on the card (its checks: rows
+#: > 16, depth and width multiples of 8); operands are zero-padded to them
+#: on every device, which leaves the int32 sums exact.
+INT_MM_MIN_ROWS, INT_MM_MULTIPLE = 17, 8
+#: The statistics the calibration recorder keeps per quantized layer.
+CALIB_STATS = ("amax", "amax_c", "p999", "p999_c")
+
+
+def _f32(value, device) -> torch.Tensor:
+    return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+
+def quantize_int8(x: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization -> (int8 values, float32 scale).
+
+    ``dims`` are reduced for the max-abs scale ``max(amax, 1e-12) / 127``
+    (kept as size-1 dims so the scale broadcasts back); values are
+    ``round(x / scale)`` (half to even) clipped to +-127, so zero stays 0.
+    Divisions are by device tensors: CUDA's division by a Python scalar
+    multiplies by its reciprocal and would flip roundings against the CPU.
+    """
+    # |x| and its max are exact in x's own type; x / scale promotes to
+    # float32 (scale keeps x's rank), so no float32 copy of x is made.
+    amax = x.abs().amax(dim=dims, keepdim=True).float()
+    scale = amax.clamp_min(1e-12) / _f32(127.0, x.device)
+    q = torch.round(x / scale).clamp_(-127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def quantize_int8_static(x: torch.Tensor, scale) -> torch.Tensor:
+    """Symmetric int8 quantization with a fixed (calibrated) ``scale``: a
+    float, or a tuple of per-channel floats broadcast over the trailing
+    (channel) axis, as in the reference's NHWC, or either as a float32
+    tensor.  Values beyond the calibrated range saturate at +-127."""
+    s = _f32(scale, x.device)
+    return torch.round(x.float() / s).clamp_(-127.0, 127.0).to(torch.int8)
+
+
+def _check_depth(k_depth: int, what: str) -> None:
+    if k_depth * 127 * 127 >= 2 ** 31:
+        raise ValueError(f"int8 {what} contraction depth {k_depth} could overflow int32")
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int_mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w.T`` of int8 ``a`` (M, K) and int8 ``w`` (N, K') -> int32
+    (M, N), exact, by ``torch._int_mm``.  The operands are zero-padded to
+    the card's shapes (rows, and the depth ``max(K, K')`` and N to
+    multiples of 8) and the padding dropped from the result; a patch
+    matrix comes with its depth padded already, so the big operand is
+    never copied."""
+    m, n = a.shape[0], w.shape[0]
+    kp = _ceil_to(max(a.shape[1], w.shape[1]), INT_MM_MULTIPLE)
+    if m < INT_MM_MIN_ROWS or a.shape[1] != kp:
+        a = F.pad(a, (0, kp - a.shape[1], 0, max(INT_MM_MIN_ROWS - m, 0)))
+    np_ = _ceil_to(n, INT_MM_MULTIPLE)
+    if w.shape != (np_, kp):
+        w = F.pad(w, (0, kp - w.shape[1], 0, np_ - n))
+    y = torch._int_mm(a, w.t())  # w row-major (N, K): mat2 column-major, cuBLASLt's layout
+    return y[:m, :n]
+
+
+def im2col_int8(xq: torch.Tensor, k: int, stride: int, pads: tuple[int, int, int, int]
+                ) -> torch.Tensor:
+    """The patch matrix of an int8 NHWC tensor for a ``k`` x ``k`` conv:
+    (B * Ho * Wo, K') int8, rows in (b, i, j) order and the K = k * k * C
+    columns in (dy, dx, c) order (the HWIO weight's flattening),
+    zero-padded to K', a multiple of 8.  Built from ``Tensor.unfold``
+    views (``F.unfold`` has no int8 kernel)."""
+    top, bottom, left, right = pads
+    xp = F.pad(xq, (0, 0, left, right, top, bottom))
+    win = xp.unfold(1, k, stride).unfold(2, k, stride)  # (B, Ho, Wo, C, k, k)
+    b, ho, wo, c = win.shape[:4]
+    kd = k * k * c
+    out = torch.empty((b * ho * wo, _ceil_to(kd, INT_MM_MULTIPLE)), dtype=torch.int8,
+                      device=xq.device)
+    out[:, :kd].view(b, ho, wo, k, k, c).copy_(win.permute(0, 1, 2, 4, 5, 3))
+    out[:, kd:].zero_()
+    return out
+
+
+def conv_int32(xq: torch.Tensor, wq: torch.Tensor, stride: int,
+               pads: tuple[int, int, int, int]) -> torch.Tensor:
+    """The exact int32 conv of int8 NHWC ``xq`` with int8 OIHW ``wq`` ->
+    (B, Ho, Wo, O) int32, over batch chunks of at most :data:`PATCH_BYTES`
+    of patches each."""
+    o, c, k, _ = wq.shape
+    w_rows = wq.permute(0, 2, 3, 1).reshape(o, k * k * c)  # (O, K) in (dy, dx, c) order
+    b, h, w = xq.shape[:3]
+    top, bottom, left, right = pads
+    ho = (h + top + bottom - k) // stride + 1
+    wo = (w + left + right - k) // stride + 1
+    per_sample = ho * wo * _ceil_to(k * k * c, INT_MM_MULTIPLE)
+    chunk = max(1, PATCH_BYTES // max(per_sample, 1))
+    out = torch.empty((b, ho, wo, o), dtype=torch.int32, device=xq.device)
+    for b0 in range(0, b, chunk):
+        part = xq[b0:b0 + chunk]
+        out[b0:b0 + part.shape[0]] = int_mm(im2col_int8(part, k, stride, pads),
+                                            w_rows).view(part.shape[0], ho, wo, o)
+    return out
+
+
+def _quantize_activations(x: torch.Tensor, act_scale, dims):
+    """-> (int8 ``x``, its scale or None, per-channel scales to fold into
+    the weight or None): dynamic over ``dims``, or static."""
+    if act_scale is None:
+        xq, sx = quantize_int8(x, dims)
+        return xq, sx, None
+    s = _f32(act_scale, x.device)
+    return quantize_int8_static(x, s), (None if s.ndim else s), (s if s.ndim else None)
+
+
+def int8_conv(x: torch.Tensor, weight: torch.Tensor, stride: int,
+              pads: tuple[int, int, int, int], act_scale=None) -> torch.Tensor:
+    """NHWC conv with both operands int8-quantized on the fly -> float32
+    NHWC (the reference's ``_int8_conv``; ``weight`` OIHW float32, ``pads``
+    (top, bottom, left, right)).
+
+    Activations: dynamic per-sample scales (dims 1-3), or the calibrated
+    static ``act_scale`` (a float, a per-input-channel tuple, or either as
+    a float32 tensor); per-channel scales fold into the float weight
+    (``W * s_c`` on OIHW dim 1) before it is quantized, so the activation
+    scale becomes 1.  Weights: per output channel.  The int32 products
+    are exact, so the only error is the two roundings; the result is
+    ``y * sx * sk`` in that order.
+    """
+    o, c, k, _ = weight.shape
+    _check_depth(k * k * c, "conv")
+    xq, sx, fold = _quantize_activations(x, act_scale, (1, 2, 3))
+    if fold is not None:
+        weight = weight * fold.reshape(1, -1, 1, 1)
+    wq, sk = quantize_int8(weight, (1, 2, 3))
+    y = conv_int32(xq, wq, stride, pads).float()
+    if sx is not None:
+        y = y * sx
+    return y * sk.reshape(o)
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                act_scale=None) -> torch.Tensor:
+    """int8 ``x @ weight.T + bias`` -> float32 (the reference's ``QDense``;
+    ``weight`` (out, in) float32): per-sample or static activation scales
+    (a per-feature tuple folds into the weight's columns), per-output
+    weight scales, ``y * sx * sk + bias``."""
+    _check_depth(x.shape[-1], "dense")
+    xq, sx, fold = _quantize_activations(x, act_scale, (1,))
+    if fold is not None:
+        weight = weight * fold[None, :]
+    wq, sk = quantize_int8(weight, (1,))
+    y = int_mm(xq, wq).float()
+    if sx is not None:
+        y = y * sx
+    return y * sk.reshape(1, -1) + bias
+
+
+def _percentile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(a, q, axis=-1)`` (linear interpolation, its float32
+    index arithmetic) by ``torch.kthvalue``: ``torch.quantile`` refuses
+    more than 2**24 elements."""
+    n = a.shape[-1]
+    f32 = np.float32
+    pos = f32(f32(q) / f32(100.0)) * (f32(n) - f32(1.0))
+    lo, hi = np.floor(pos), np.ceil(pos)
+    w_hi = f32(pos - lo)
+    w_lo = f32(1.0) - w_hi
+    lo_v = torch.kthvalue(a, int(min(max(lo, 0), n - 1)) + 1, dim=-1).values
+    hi_v = torch.kthvalue(a, int(min(max(hi, 0), n - 1)) + 1, dim=-1).values
+    return lo_v * _f32(w_lo, a.device) + hi_v * _f32(w_hi, a.device)
+
+
+def layer_stats(x: torch.Tensor, keys) -> dict[str, torch.Tensor]:
+    """The calibration statistics ``keys`` of one quantized layer's input
+    (channels last): max |x| and its 99.9th percentile, over all of it
+    (``amax``, ``p999``) and per channel (``amax_c``, ``p999_c``); the
+    reference's ``_calib_sows``."""
+    absx = x.detach().float().abs()
+    per_c = absx.reshape(-1, absx.shape[-1])
+    out = {}
+    if "amax" in keys or "amax_c" in keys:
+        amax_c = per_c.amax(dim=0)
+        out.update(amax=amax_c.amax(), amax_c=amax_c)
+    if "p999" in keys:
+        out["p999"] = _percentile(absx.reshape(-1), 99.9)
+    if "p999_c" in keys:
+        out["p999_c"] = _percentile(per_c.t().contiguous(), 99.9)
+    return {k: out[k] for k in keys}
+
+
+@contextlib.contextmanager
+def recording_stats(model: "DeepIMFlowNet", keys):
+    """Within the block, every dynamic int8 layer of ``model`` records the
+    :func:`layer_stats` ``keys`` of its input into the yielded dict
+    ({layer: {stat: tensor}}, elementwise max over the calls); outside it,
+    none are computed (a percentile of a full-size activation is a large
+    selection)."""
+    stats: dict[str, dict[str, torch.Tensor]] = {}
+    model._calib_stats, model._calib_keys = stats, tuple(keys)
+    try:
+        yield stats
+    finally:
+        model._calib_stats = None
+
+
 class DeepIMFlowNet(nn.Module):
     """The DeepIM network.
 
@@ -106,6 +336,16 @@ class DeepIMFlowNet(nn.Module):
     Initial weights are drawn from ``generator`` (a fresh generator seeded
     0 when None), the decoder's after the pose head's, so a model with and
     one without the decoder share every other initial weight.
+
+    ``quant="int8"`` runs the encoder convs and fc1/fc2 in int8 (the
+    decoder, the mask head, fc_rot and fc_trans stay in ``dtype``) on the
+    same parameters: ``state_dict()`` is the plain model's, so checkpoints
+    load either way.  ``act_scales``, a plain attribute (neither parameter
+    nor buffer), is the sorted ``((layer, scale), ...)`` of
+    ``models/quant.py §calibrate_act_scales``: a layer named there
+    quantizes its input with that static scale, the others per sample.
+    :meth:`with_act_scales` gives the calibrated int8 twin that shares the
+    parameters (flax's ``clone(act_scales=...)``).
     """
 
     def __init__(self, num_classes: int = 1, rot_type: str = "quat",
@@ -119,10 +359,9 @@ class DeepIMFlowNet(nn.Module):
                  pose_head: str = "flatten", mxnet_pad: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if quant != "none":
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 inference is not ported yet "
-                "(ROADMAP A10)")
+        if quant not in ("none", "int8"):
+            raise ValueError(f"quant={quant!r} is not 'none' or 'int8' (an int8_static "
+                             "model is the int8 one with calibrated act_scales)")
         if rot_type not in ("quat", "euler"):
             raise ValueError(rot_type)
         if pose_head not in ("flatten", "gap"):
@@ -141,6 +380,10 @@ class DeepIMFlowNet(nn.Module):
         self.pose_head = pose_head
         self.mxnet_pad = mxnet_pad
         self.dtype = dtype
+        self.quant = quant
+        self.act_scales: tuple = ()
+        self._calib_stats = None  # recording_stats' dict while it is active
+        self._scale_cache = None  # act_scales as device tensors, by _act_scale
         self.register_buffer("trans_scale",
                              torch.tensor(trans_scale, dtype=torch.float32),
                              persistent=False)
@@ -234,14 +477,77 @@ class DeepIMFlowNet(nn.Module):
             out["mask_logit"] = m.permute(0, 2, 3, 1).float()
         return out
 
+    def with_act_scales(self, act_scales: tuple) -> "DeepIMFlowNet":
+        """The int8 twin of this model with static ``act_scales``: a shallow
+        copy sharing every parameter, buffer and submodule."""
+        twin = copy.copy(self)
+        twin.quant = "int8"
+        twin.act_scales = tuple(act_scales)
+        twin._calib_stats = None
+        twin._scale_cache = None
+        return twin
+
+    def _act_scale(self, name: str, device: torch.device) -> torch.Tensor | None:
+        """The static scale of layer ``name`` as a float32 tensor on
+        ``device`` (0-d, or per channel), or None: made once per
+        ``act_scales`` (fc1's per-feature tuple has 81,920 entries)."""
+        if self._scale_cache is None or self._scale_cache[0] is not self.act_scales:
+            self._scale_cache = (self.act_scales, dict(self.act_scales), {})
+        _, scales, tensors = self._scale_cache
+        if name not in scales:
+            return None
+        key = (name, str(device))
+        if key not in tensors:
+            tensors[key] = _f32(scales[name], device)
+        return tensors[key]
+
+    def _record(self, name: str, x: torch.Tensor) -> None:
+        """Calibration: keep ``x``'s statistics while recording_stats is on."""
+        if self._calib_stats is None:
+            return
+        new = layer_stats(x, self._calib_keys)
+        old = self._calib_stats.get(name)
+        self._calib_stats[name] = new if old is None else {
+            k: torch.maximum(old[k], v) for k, v in new.items()}
+
+    def _qconv(self, name: str, x: torch.Tensor, sym: bool) -> torch.Tensor:
+        """One int8 encoder conv + leaky, NHWC in and out."""
+        conv = getattr(self, name)
+        k, s = conv.kernel_size[0], conv.stride[0]
+        if sym:
+            pads = (k // 2,) * 4
+        else:
+            pads = (*same_pad(x.shape[1], k, s), *same_pad(x.shape[2], k, s))
+        scale = self._act_scale(name, x.device)
+        if scale is None:
+            self._record(name, x)
+        y = int8_conv(x, conv.weight, s, pads, act_scale=scale)
+        return leaky((y + conv.bias).to(self.dtype))
+
+    def _qlinear(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        """int8 fc1/fc2: the leaky in float32, then the compute type."""
+        lin = getattr(self, name)
+        scale = self._act_scale(name, h.device)
+        if scale is None:
+            self._record(name, h)
+        return leaky(int8_linear(h, lin.weight, lin.bias, act_scale=scale)).to(self.dtype)
+
     def forward(self, x: torch.Tensor, pose_only: bool = False) -> dict[str, torch.Tensor]:
         decode = (self.with_flow or self.with_mask) and not pose_only
-        c = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
+        quant = self.quant == "int8"
+        c = x.to(self.dtype)
+        if not quant:
+            c = c.permute(0, 3, 1, 2)  # NHWC -> NCHW
         skips = {}
         for name, *_ in ENCODER:
-            c = self._conv(name, c, self.mxnet_pad)
+            if quant:  # NHWC throughout, the reference's layout
+                c = self._qconv(name, c, self.mxnet_pad)
+            else:
+                c = self._conv(name, c, self.mxnet_pad)
             if decode and name in SKIPS.values():
-                skips[name] = c
+                skips[name] = c.permute(0, 3, 1, 2) if quant else c
+        if quant:
+            c = c.permute(0, 3, 1, 2)
         out = self._decode(c, skips) if decode else {}
         if self.pose_head == "gap":
             h = c.mean(dim=(2, 3))
@@ -250,8 +556,11 @@ class DeepIMFlowNet(nn.Module):
                 c = F.interpolate(c, size=self.head_grid, mode="bilinear",
                                   align_corners=False, antialias=False)
             h = c.permute(0, 2, 3, 1).reshape(c.shape[0], -1)  # NHWC flatten
-        h = leaky(self._linear(self.fc1, h))
-        h = leaky(self._linear(self.fc2, h)).float()
+        if quant:
+            h = self._qlinear("fc2", self._qlinear("fc1", h)).float()
+        else:
+            h = leaky(self._linear(self.fc1, h))
+            h = leaky(self._linear(self.fc2, h)).float()
         rot = self._linear(self.fc_rot, h)
         trans = self._linear(self.fc_trans, h)
         out["rot_raw"] = rot.reshape(-1, self.num_classes, self.rot_dim)

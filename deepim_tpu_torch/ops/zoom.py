@@ -2,7 +2,8 @@
 the observed-image crop (torch).
 
 Port of ``deepim_tpu/ops/zoom.py`` (``ZoomBox``, ``model_corners``,
-``compute_zoom_box``, ``zoom_intrinsics``, ``zoom_image_batch``).  The
+``compute_zoom_box``, ``zoom_intrinsics``, ``zoom_image``,
+``zoom_image_batch``, ``zoom_flow``, ``unzoom_points``).  The
 reference maps the per-sample functions with ``vmap``; here they
 broadcast over leading batch dims.  The rendered image is never resampled:
 it is rendered straight into the crop through :func:`zoom_intrinsics`.
@@ -78,3 +79,26 @@ def zoom_image_batch(imgs: torch.Tensor, box: ZoomBox, out_size: tuple[int, int]
     -> (B, H_out, W_out, C), filling outside the image with 0."""
     return resample_affine(imgs, out_size, box.x0, box.y0, box.sx, box.sy,
                            method=method)
+
+
+def zoom_image(img: torch.Tensor, box: ZoomBox, out_size: tuple[int, int],
+               method: str = "bilinear", fill_value: float = 0.0) -> torch.Tensor:
+    """Crop+resize one (H, W, C) image with a box of scalar fields ->
+    (H_out, W_out, C); the zoom fills with 0 only, as the reference's."""
+    if fill_value != 0.0:
+        raise NotImplementedError("zoom fill_value must be 0")
+    return resample_affine(img, out_size, box.x0, box.y0, box.sx, box.sy, method=method)
+
+
+def zoom_flow(flow: torch.Tensor, box: ZoomBox, out_size: tuple[int, int]) -> torch.Tensor:
+    """Crop+resize a flow field (H, W, 2) in source pixels and rescale its
+    vectors by (sx, sy): one crop pixel is (1/sx, 1/sy) source pixels."""
+    out = zoom_image(flow, box, out_size)
+    return out * torch.stack([box.sx, box.sy]).reshape((1,) * (out.ndim - 1) + (2,))
+
+
+def unzoom_points(uv_crop: torch.Tensor, box: ZoomBox) -> torch.Tensor:
+    """Crop-pixel coordinates (..., 2) back to source-image coordinates."""
+    x = uv_crop[..., 0] / box.sx + box.x0
+    y = uv_crop[..., 1] / box.sy + box.y0
+    return torch.stack([x, y], dim=-1)

@@ -87,15 +87,25 @@ class PoseRefinerService:
         num_iters: refine iterations (default ``cfg.test.test_iter``).
         device: where the model, the assets and every batch live (default
             ``cuda:0``).
+        calibration_batches: for ``network.quant: int8_static``, the
+            eval-style batch dicts (``obs_rgb``, ``pose_src``,
+            ``class_idx`` on ``device``) the static activation scales are
+            calibrated on at construction; default two
+            :func:`~deepim_tpu_torch.data.synthetic_batch` draws of the
+            device batch from generators seeded 4200 and 4201 at the
+            config's noise model.
+        calibration_mode: the estimator (``models/quant.py
+            §CALIB_MODES``).
 
-    ``network.quant`` int8 modes raise ``NotImplementedError`` here: the
-    reference calibrates them at construction, which needs int8
-    inference (ROADMAP A10).
+    ``network.quant: int8`` serves the dynamic int8 model; ``int8_static``
+    calibrates before the worker starts, and a failed calibration raises
+    here: the service never serves an uncalibrated static model.
     """
 
     def __init__(self, cfg, batch_size: int | None = None,
                  load_checkpoint: bool = True, gather_window_s: float = 0.002,
-                 num_iters: int | None = None, device=None):
+                 num_iters: int | None = None, device=None,
+                 calibration_batches=None, calibration_mode: str = "max_c"):
         if not isinstance(cfg, Config):
             cfg = update_config(cfg)
         self.cfg = cfg
@@ -123,11 +133,31 @@ class PoseRefinerService:
         self._coarse = (n.coarse_height, n.coarse_width) if n.coarse_height else None
         self._coarse_iters = cfg.test.coarse_iters
         self._image_size = (cfg.dataset.image_height, cfg.dataset.image_width)
+        if n.quant == "int8_static":
+            self.model = self._calibrate(calibration_batches, calibration_mode)
 
         self._queue: queue.Queue = queue.Queue()
         self._worker = threading.Thread(target=self._worker_loop, daemon=True)
         self._running = True
         self._worker.start()
+
+    def _calibrate(self, batches, mode: str):
+        """The int8_static model: scales from ``batches`` (default two
+        synthetic batches, generators seeded 4200 and 4201)."""
+        from deepim_tpu_torch.data.synthetic import synthetic_batch
+        from deepim_tpu_torch.models.quant import calibrate_model
+        from deepim_tpu_torch.raster.camera import make_intrinsics
+
+        d, t = self.cfg.dataset, self.cfg.train
+        k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=self.device)
+        if batches is None:
+            batches = [synthetic_batch(
+                torch.Generator(device=self.device).manual_seed(4200 + i), self.assets,
+                self.batch, k_cam, self._image_size, rot_noise_deg=t.rot_noise_deg,
+                rot_max_deg=t.rot_noise_max_deg, trans_noise=tuple(t.trans_noise),
+                trans_max=tuple(t.trans_noise_max)) for i in range(2)]
+        return calibrate_model(self.model, self.assets, batches, k_cam, self._out_size,
+                               num_iters=self.num_iters, mode=mode)
 
     # --- public API -------------------------------------------------------
 

@@ -68,8 +68,11 @@ def make_model(cfg, num_classes: int, inference: bool = False,
     ``network.with_flow``/``with_mask`` (``refine_step`` runs any model
     pose only, as the reference's refine does); ``inference=True`` builds
     the pose-only network the service loads and applies
-    ``network.quant``: int8 is not ported yet and raises
-    ``NotImplementedError`` (ROADMAP A10).  The decoder's weights are drawn
+    ``network.quant``: both ``int8`` and ``int8_static`` build the dynamic
+    int8 model (the calibrating entry points, ``cli.test`` and the
+    service, turn it into the static one with ``models/quant.py
+    §calibrate_model``); training always builds ``"none"``, since
+    rounding has no gradient.  The decoder's weights are drawn
     after all others, so both builds share every other initial weight.
     The flatten head is pinned to the full-resolution bottleneck grid
     (``head_grid``), so one set of weights also serves the coarse
@@ -85,7 +88,7 @@ def make_model(cfg, num_classes: int, inference: bool = False,
         input_depth=n.input_depth,
         fc_dim=n.fc_dim,
         dtype=torch.bfloat16 if n.dtype == "bfloat16" else torch.float32,
-        quant=n.quant if inference else "none",
+        quant="int8" if inference and n.quant.startswith("int8") else "none",
         with_flow=n.with_flow and not inference,
         with_mask=n.with_mask and not inference,
         pose_head=n.pose_head,

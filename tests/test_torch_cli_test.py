@@ -15,8 +15,13 @@
   set run; ``--results-out`` records the revision.
 - What raises before any batch is drawn: an on-disk set without its
   models (``lm6d``) or without its keyframe list (``ycb_video``),
-  ``--quant int8``, ``--init-poses`` and ``--posecnn-mat`` on generated
-  data, ``cuda:0`` with no card; and an experiment with only orbax steps.
+  ``--quant int8_static`` with an unknown ``--quant-calib``,
+  ``--init-poses`` and ``--posecnn-mat`` on generated data, ``cuda:0``
+  with no card; and an experiment with only orbax steps.
+- ``--quant int8`` and ``--quant int8_static`` on the CPU: the int8 eval
+  runs; int8_static calibrates on two batches and still scores every
+  sample, and its trajectories equal the eval loop of the model that
+  ``calibrate_model`` gives on those two batches.
   (tests/test_torch_disk_cli.py runs the on-disk sets.)
 - ``cli.train_test`` on a tiny config; ``--n-devices 2`` raises.
 """
@@ -181,6 +186,49 @@ def test_cli_test_variants_run(tmp_path, capsys, variant):
     assert np.isfinite(traj).all() and _lines(text, "[INIT]")
 
 
+@pytest.mark.parametrize("quant", ["int8", "int8_static"])
+def test_cli_test_int8_modes(tmp_path, capsys, quant):
+    from deepim_tpu_torch.models.quant import calibrate_model
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+
+    spec = _spec(tmp_path, f"q_{quant}")
+    path = _write(tmp_path, spec)
+    assert cli_test.main(["--cfg", path, "--device", "cpu", "--num-samples", "8",
+                          "--save-poses", "--quant", quant]) == 0
+    text = capsys.readouterr().out
+    traj = np.load(tmp_path / "out" / spec["experiment"] / "refined_poses.npz")["traj"]
+    assert traj.shape == (3, 8, 3, 4) and np.isfinite(traj).all()
+    assert bool(_lines(text, "int8_static: calibrated activation scales on 2 batches "
+                             "(mode=max_c)")) == (quant == "int8_static")
+    # the same eval by hand: the int8 model, calibrated on the first two
+    # batches for int8_static, over the whole stream
+    cfg = config_from_dict(spec)
+    assets, _, _ = _assets(cfg)
+    model = train_t.make_model(config_from_dict({**spec, "network": {**spec["network"],
+                                                                       "quant": quant}}),
+                               2, inference=True)
+    model.load_state_dict(_pose_only(_weights_of(H, W)))
+    d = cfg.dataset
+    k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device="cpu")
+    stream = list(cli_test.eval_stream(cfg, assets, k_cam, 2, 4))
+    if quant == "int8_static":
+        model = calibrate_model(model, assets, stream, k_cam, (H, W), num_iters=2)
+    want = cli_test.refine_batches(model, assets, stream, k_cam, 2, (H, W))["traj"].numpy()
+    np.testing.assert_array_equal(traj, want)
+
+
+def _assets(cfg):
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+
+    return load_assets_and_names(cfg, eval_set=True, device="cpu")
+
+
+def _pose_only(sd):
+    from deepim_tpu_torch.models.bridge import DECODER_LAYERS
+
+    return {k: v for k, v in sd.items() if k.split(".")[0] not in DECODER_LAYERS}
+
+
 @pytest.mark.parametrize("case", ["lm6d", "ycb_video", "quant", "init_poses", "posecnn_mat",
                                   "no_card"])
 def test_cli_test_refuses_before_any_batch(tmp_path, monkeypatch, case):
@@ -200,13 +248,14 @@ def test_cli_test_refuses_before_any_batch(tmp_path, monkeypatch, case):
 
     monkeypatch.setattr(cli_test, "eval_stream", no_batch)
     argv = ["--cfg", path, "--device", "cuda:0" if case == "no_card" else "cpu"]
-    argv += {"quant": ["--quant", "int8"], "init_poses": ["--init-poses", "x.csv"],
+    argv += {"quant": ["--quant", "int8_static", "--quant-calib", "max_x"],
+             "init_poses": ["--init-poses", "x.csv"],
              "posecnn_mat": ["--posecnn-mat", "mats"]}.get(case, [])
     if case == "no_card":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     error, match = {"lm6d": (FileNotFoundError, "textured.ply"),
                     "ycb_video": (SystemExit, "keyframe.txt"),
-                    "quant": (NotImplementedError, "A10"), "no_card": (RuntimeError, "no CUDA"),
+                    "quant": (SystemExit, "quant-calib"), "no_card": (RuntimeError, "no CUDA"),
                     }.get(case, (SystemExit, "on-disk"))
     with pytest.raises(error, match=match):
         cli_test.main(argv)

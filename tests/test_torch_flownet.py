@@ -141,8 +141,11 @@ def test_identity_heads_and_helpers():
     quat = fn_t.decode_rot(fn_t.select_class(out["rot_raw"], torch.tensor([0, 2])), "quat")
     np.testing.assert_array_equal(quat.numpy(), [[1, 0, 0, 0]] * 2)
     assert torch.count_nonzero(out["trans"]) == 0
-    with pytest.raises(NotImplementedError):
-        fn_t.DeepIMFlowNet(input_size=(64, 64), quant="int8")
+    # int8 builds (tests/test_torch_quant.py); int8_static is int8 with
+    # calibrated scales, never a model of its own
+    assert fn_t.DeepIMFlowNet(input_size=(64, 64), quant="int8").quant == "int8"
+    with pytest.raises(ValueError, match="quant"):
+        fn_t.DeepIMFlowNet(input_size=(64, 64), quant="int8_static")
     rng = np.random.RandomState(4)
     per_class = rng.randn(5, C, 4).astype(np.float32)
     idx = np.array([0, 2, 1, 7, 2])  # 7 clamps to the last class

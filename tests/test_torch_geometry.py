@@ -121,3 +121,56 @@ def test_delta_inverse_pair():
     k = torch.from_numpy(np.broadcast_to(K, (32, 3, 3)).copy())
     back = dp_t.apply_delta(src, dp_t.calc_delta(src, tgt, k), k)
     np.testing.assert_allclose(back.numpy(), tgt.numpy(), rtol=0, atol=2e-5)
+
+
+# -- the public helpers of deepim_tpu.geometry (tests/test_rotations.py) --------
+
+@pytest.mark.parametrize("name", ["quat_mul", "quat_conjugate", "quat2euler", "mat2euler",
+                                  "axangle2quat", "axangle2mat"])
+def test_rotation_helpers_match_reference(name):
+    q2 = RNG.randn(64, 4).astype(np.float32)
+    axis = RNG.randn(64, 3).astype(np.float32)
+    angle = ANGLES[0]
+    args = {"quat_mul": (QUATS, q2), "quat_conjugate": (QUATS,), "quat2euler": (QUATS,),
+            "mat2euler": (np.array(rot_j.quat2mat(jnp.asarray(QUATS))),),
+            "axangle2quat": (axis, angle), "axangle2mat": (axis, angle)}[name]
+    got = getattr(rot_t, name)(*(torch.from_numpy(a) for a in args))
+    want = getattr(rot_j, name)(*(jnp.asarray(a) for a in args))
+    if isinstance(want, tuple):
+        for g, w in zip(got, want):
+            _close(g, w)
+    else:
+        _close(got, want)
+
+
+def test_rotation_helper_identities():
+    """tests/test_rotations.py's identities on the port: the Hamilton
+    product composes the matrices, q (x) conj(q) is the identity, euler
+    and axis-angle round trips, and gimbal lock."""
+    q1, q2 = (rot_t.quat_normalize(torch.from_numpy(RNG.randn(16, 4).astype(np.float32)))
+              for _ in range(2))
+    torch.testing.assert_close(rot_t.quat2mat(rot_t.quat_mul(q1, q2)),
+                               rot_t.quat2mat(q1) @ rot_t.quat2mat(q2), atol=1e-5, rtol=0)
+    ident = rot_t.quat_mul(q1, rot_t.quat_conjugate(q1))
+    torch.testing.assert_close(ident, torch.tensor([1.0, 0, 0, 0]).expand(16, 4),
+                               atol=1e-6, rtol=0)
+    ax, ay, az = (torch.from_numpy(a) for a in RNG.uniform(-1.4, 1.4, (3, 16)).astype(np.float32))
+    for got, want in zip(rot_t.mat2euler(rot_t.euler2mat(ax, ay, az)), (ax, ay, az)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    for got, want in zip(rot_t.quat2euler(rot_t.euler2quat(ax, ay, az)), (ax, ay, az)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    m = rot_t.axangle2mat(torch.tensor([0.0, 1.0, 0.0]), torch.tensor(0.7))
+    torch.testing.assert_close(rot_t.rotation_angle(m), torch.tensor(0.7), atol=1e-6, rtol=0)
+    lock = rot_t.euler2mat(torch.tensor(0.3), torch.tensor(np.pi / 2), torch.tensor(0.0))
+    ax2, ay2, az2 = rot_t.mat2euler(lock)
+    torch.testing.assert_close(rot_t.euler2mat(ax2, ay2, az2), lock, atol=1e-5, rtol=0)
+    assert float(az2) == 0.0
+
+
+def test_geometry_exports_the_reference_rotation_helpers():
+    import deepim_tpu.geometry as geo_j
+    import deepim_tpu_torch.geometry as geo_t
+
+    for name in ("quat_mul", "quat_conjugate", "mat2euler", "quat2euler", "axangle2mat",
+                 "axangle2quat"):
+        assert hasattr(geo_j, name) and callable(getattr(geo_t, name)), name

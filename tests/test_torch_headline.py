@@ -109,3 +109,32 @@ def test_train_config_is_the_flagship_training_yaml():
     assert (n.input_height, n.input_width, n.dtype) == (*hl.SIZE, "bfloat16")
     assert n.with_flow and n.with_mask and t.optimizer == "adam"
     assert (t.batch_size, t.train_iter) == (32, 2)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8", "int8_static"])
+def test_headline_runs_at_each_quant_mode(monkeypatch, quant):
+    """The headline's quant modes (bench.py's BENCH_QUANT) on the CPU at a
+    small size: int8_static calibrates on the headline batch with the
+    estimator "max" (scalar scales), and the line names the mode."""
+    monkeypatch.setattr(hl, "SIZE", (48, 64))
+    monkeypatch.setattr(hl, "COARSE", (24, 32))
+    assets = hl.headline_assets("cpu", dense_sphere=False)
+    obs, init, ks, cls = hl.headline_inputs("cpu", assets.num_classes, batch=2)
+    base = hl.random_model(assets.num_classes, dtype=torch.float32)
+    model = hl.headline_model(base, quant, assets, obs, init, ks, cls)
+    assert model.quant == ("none" if quant == "none" else "int8")
+    assert bool(model.act_scales) == (quant == "int8_static")
+    assert all(isinstance(s, float) for _, s in model.act_scales)
+    out = hl.run_headline(model, assets, obs, init, ks, cls)
+    assert out.shape == (2, 3, 4) and torch.isfinite(out).all()
+    fields = hl.headline_fields(quant)
+    assert fields["quant"] == quant
+    assert fields["quant_calib"] == ("max" if quant == "int8_static" else None)
+
+
+@pytest.mark.parametrize("quant,calib", [("int4", "max"), ("int8_static", "mx")])
+def test_headline_rejects_unknown_quant(quant, calib):
+    with pytest.raises(ValueError, match="is not one of"):
+        hl.headline_fields(quant, calib)
+    with pytest.raises(ValueError, match="is not one of"):
+        hl.headline_model(None, quant, None, None, None, None, None, calib)

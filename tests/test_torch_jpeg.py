@@ -10,7 +10,14 @@ port's decoder must return PIL's pixels bit for bit, and its C++ stages
   block and every row; smooth and noisy content;
 - files of the fixture encoder (``test_torch_release_fixtures.encode_jpeg``)
   with restart intervals, read by PIL, the C++ and the plain decoder;
-- progressive, arithmetic-coded, 12-bit and CMYK files raise naming the
+- progressive files (SOF2), written by PIL (libjpeg's default scan
+  script: DC first and refine, AC first with EOB runs, AC refine) and by
+  the fixture encoder (``encode_jpeg_progressive``), at the same sizes,
+  subsamplings and restart intervals: PIL's pixels, bit for bit.  They
+  are fully refined, so libjpeg does not smooth them; a file whose first
+  ten coefficients stop short of the last refinement (libjpeg smooths it)
+  raises;
+- lossless, arithmetic-coded, 12-bit and CMYK files raise naming the
   marker; a truncated file and a missing restart marker raise; a failed
   build raises with the compiler's output (no fallback);
 - ``imread`` picks PNG or JPEG by the magic bytes.
@@ -29,7 +36,7 @@ from PIL import Image
 from deepim_tpu_torch.data import jpeg, png
 
 sys.path.insert(0, os.path.dirname(__file__))
-from test_torch_release_fixtures import encode_jpeg  # noqa: E402
+from test_torch_release_fixtures import encode_jpeg, encode_jpeg_progressive  # noqa: E402
 
 SUBSAMPLING = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2}
 
@@ -113,9 +120,9 @@ def _replace_sof(data: bytes, marker: int, precision: int | None = None) -> byte
 
 def test_unsupported_files_raise_naming_the_marker():
     img = _image(16, 16)
-    with pytest.raises(ValueError, match=r"progressive JPEG \(SOF2\)"):
-        jpeg.decode_jpeg(_pil_jpeg(img, progressive=True))
     base = _pil_jpeg(img)
+    with pytest.raises(ValueError, match=r"lossless JPEG \(SOF3\)"):
+        jpeg.decode_jpeg(_replace_sof(base, 0xC3))
     with pytest.raises(ValueError, match=r"arithmetic-coded JPEG \(SOF9\)"):
         jpeg.decode_jpeg(_replace_sof(base, 0xC9))
     with pytest.raises(ValueError, match=r"12-bit JPEG \(SOF0\)"):
@@ -161,3 +168,64 @@ def test_imread_picks_the_codec(tmp_path):
                                   _pil_decode((tmp_path / "b.jpg").read_bytes()))
     with pytest.raises(ValueError, match="neither a PNG nor a JPEG"):
         jpeg.imread(str(tmp_path / "c.bin"))
+
+
+def _sos_count(data: bytes) -> int:
+    return data.count(b"\xff\xda")
+
+
+@pytest.mark.parametrize("size", [(48, 64), (47, 61), (9, 17)])
+@pytest.mark.parametrize("mode", ["grey", "4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("restart", [{}, {"restart_marker_blocks": 1},
+                                     {"restart_marker_rows": 1}])
+def test_progressive_pil_files_decode_to_pils_pixels(size, mode, restart):
+    img = _image(*size, grey=mode == "grey")
+    kw = dict(restart, progressive=True)
+    if mode != "grey":
+        kw["subsampling"] = SUBSAMPLING[mode]
+    for quality in (30, 95):
+        data = _pil_jpeg(img, quality=quality, **kw)
+        assert b"\xff\xc2" in data and _sos_count(data) >= 6
+        assert (b"\xff\xd0" in data) == bool(restart)
+        want = _pil_decode(data)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data), want)
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data, plain=True), want)
+
+
+@pytest.mark.parametrize("mode", ["4:4:4", "4:2:0"])
+def test_progressive_noisy_frame_cpp_equals_plain_equals_pil(mode):
+    """Full-range noise: long AC bands in every scan, corrections on most
+    coefficients of the refine scans."""
+    img = np.random.RandomState(5).randint(0, 256, (96, 128, 3)).astype(np.uint8)
+    data = _pil_jpeg(img, quality=95, subsampling=SUBSAMPLING[mode], progressive=True)
+    fast, plain = jpeg.decode_jpeg(data), jpeg.decode_jpeg(data, plain=True)
+    np.testing.assert_array_equal(fast, plain)
+    np.testing.assert_array_equal(fast, _pil_decode(data))
+
+
+@pytest.mark.parametrize("mode", ["grey", "4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("restart", [0, 1, 7])
+def test_progressive_fixture_encoder_files(mode, restart):
+    """The fixture encoder's progressive files (EOB runs across blocks, ZRLs
+    and correction bits buffered across them) read alike in PIL, the C++
+    and the plain decoder."""
+    img = _image(47, 61, seed=2, grey=mode == "grey")
+    data = encode_jpeg_progressive(img, 80, "4:4:4" if mode == "grey" else mode, restart)
+    want = _pil_decode(data)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data), want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data, plain=True), want)
+
+
+def test_progressive_file_without_its_last_refinement_raises():
+    data = encode_jpeg_progressive(_image(16, 16), 80, "4:2:0")
+    cut = data[:data.rindex(b"\xff\xda")] + b"\xff\xd9"  # drop luma's last AC refinement
+    with pytest.raises(ValueError, match="not fully refined"):
+        jpeg.decode_jpeg(cut)
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_progressive_truncated_file_raises(plain):
+    data = _pil_jpeg(_image(64, 64, noise=255), quality=95, progressive=True)
+    i = data.rindex(b"\xff\xda")  # into the last scan: every scan is there, cut short
+    with pytest.raises(ValueError, match="truncated"):
+        jpeg.decode_jpeg(data[:i + 40] + b"\xff\xd9", plain=plain)

@@ -2,9 +2,10 @@
 
 The machine with the card has no jax and no PIL, so the port must import,
 refine, serve, train (the losses, the flow GT, the optimizer, one fused
-synthetic step, a checkpoint round trip), evaluate (the evaluator, PNG
-and BOP files, the eval loop), generate and read video sequences, and
-generate and read an on-disk LM6d root (the toolkit, the C++ PNG unfilter,
+synthetic step, a checkpoint round trip), calibrate an int8_static
+model and refine with it, evaluate (the evaluator, PNG and BOP files, the
+eval loop), generate and read video sequences, and generate and read an
+on-disk LM6d root (the toolkit, the C++ PNG unfilter,
 the streamed batches, ``TrainBatcher``, an OBJ model), and convert public
 releases (a BOP JSON release, an original LINEMOD one with JPEG frames,
 ``cli.runbook --dry-run``: detect, convert, validate, write the eval
@@ -56,6 +57,14 @@ out = refine_poses(model, assets, torch.rand(2, 120, 160, 3, generator=g), init,
                    k.expand(2, 3, 3), torch.tensor([0, 1]), num_iters=2,
                    out_size=(32, 64), coarse_iters=1)
 assert out.shape == (2, 3, 4) and torch.isfinite(out).all()
+from deepim_tpu_torch.models.quant import calibrate_model
+static = calibrate_model(model, assets, [{"obs_rgb": torch.rand(2, 120, 160, 3, generator=g),
+                                          "pose_src": init, "class_idx": torch.tensor([0, 1])}],
+                         k, (32, 64), num_iters=2)
+assert static.quant == "int8" and len(static.act_scales) == 12
+out = refine_poses(static, assets, torch.rand(2, 120, 160, 3, generator=g), init,
+                   k.expand(2, 3, 3), torch.tensor([0, 1]), num_iters=1, out_size=(32, 64))
+assert torch.isfinite(out).all()
 
 from deepim_tpu_torch.data import synthetic_occlusion_batch
 from deepim_tpu_torch.raster.mesh import texturize
@@ -157,7 +166,8 @@ with tempfile.TemporaryDirectory() as d:
     finally:
         os.chdir(cwd)
     assert os.path.exists(d + "/output/real_data_runbook/config.yaml")
-for m in ("data.jpeg", "data.bop", "data.lm_original", "data.validate", "cli.runbook",
+for m in ("models.quant", "data.jpeg", "data.bop", "data.lm_original", "data.validate",
+          "cli.runbook",
           "cli.convert_dataset", "cli.validate_dataset", "train.convert_mxnet",
           "utils.profiling", "utils.logging"):
     assert "deepim_tpu_torch." + m in mods, m

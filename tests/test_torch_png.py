@@ -15,6 +15,14 @@
   bit for bit.  A bad filter byte and a truncated stream raise; a failed
   build raises with the compiler's output (there is no fallback);
   concurrent builders agree on one library.
+- Every colour type and bit depth, plain and Adam7-interlaced, written by
+  ``test_torch_release_fixtures.encode_png_raw`` (interlaced files by hand:
+  PIL writes none) at sizes that leave passes empty: the port returns
+  what the reference's ``LM6DDataset._read_image`` returns (its native
+  decoder, or PIL where that refuses), dtype, shape and values; the C++
+  reassembly equals ``adam7_plain``.  PIL-written palette (1, 2, 4 and
+  8 bits; a palette ``label.png`` gives its label ids), grey + alpha and
+  RGBA files, the same.
 """
 
 import io
@@ -22,14 +30,21 @@ import struct
 import threading
 import zlib
 
+import os
+import sys
+
 import numpy as np
 import pytest
 from PIL import Image
 
 from deepim_tpu import native
+from deepim_tpu.data.lm6d import LM6DDataset
 from deepim_tpu.utils import viz as viz_j
 from deepim_tpu_torch.data import png
 from deepim_tpu_torch.utils import viz as viz_t
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_torch_release_fixtures import encode_png_raw  # noqa: E402
 
 
 def _images(seed=0, h=24, w=32):
@@ -139,10 +154,10 @@ def test_unsupported_images_raise(tmp_path):
         png.encode_png(np.zeros((4, 4), np.float32))
     with pytest.raises(ValueError):
         png.encode_png(np.zeros((4, 4, 4), np.uint8))
-    buf = io.BytesIO()
-    Image.fromarray(np.zeros((4, 4, 4), np.uint8)).save(buf, format="PNG")  # RGBA
-    with pytest.raises(ValueError):
-        png.decode_png(buf.getvalue())
+    bad_depth = encode_png_raw(np.zeros((4, 4)), 3, 8).replace(  # a 16-bit palette
+        struct.pack(">IIBB", 4, 4, 8, 3), struct.pack(">IIBB", 4, 4, 16, 3))
+    with pytest.raises(ValueError, match="colour type 3, bit depth 16"):
+        png.decode_png(bad_depth)
     with pytest.raises(ValueError):
         png.decode_png(b"not a png at all")
 
@@ -208,7 +223,7 @@ def test_bad_filter_and_truncated_stream_raise():
 
 def test_failed_build_raises_without_fallback(tmp_path, monkeypatch):
     monkeypatch.setattr(png, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(png, "_unfilter_fn", None)
+    monkeypatch.setattr(png, "_lib", None)
     monkeypatch.setenv("CXX", "false")  # a compiler that always fails
     with pytest.raises(RuntimeError, match="false failed"):
         png.decode_png(png.encode_png(_images()["rgb8"]))
@@ -234,3 +249,77 @@ def test_concurrent_builds_agree(tmp_path, monkeypatch):
         t.join()
     assert not errors and len(set(paths)) == 1 and paths[0].exists()
     assert [p.name for p in (tmp_path / "build").iterdir()] == [paths[0].name]
+
+
+# (colour type, bit depth) of every PNG the specification allows
+PNG_TYPES = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 2), (3, 4),
+             (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
+CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _raw_png(colour, depth, interlace, h=37, w=41, seed=0):
+    rng = np.random.RandomState(seed + depth)
+    samples = rng.randint(0, 1 << depth, (h, w, CHANNELS[colour]))
+    palette = (bytes(rng.randint(0, 256, 3 << depth).astype(np.uint8)) if colour == 3
+               else None)
+    return encode_png_raw(samples, colour, depth, interlace, palette)
+
+
+@pytest.mark.parametrize("colour,depth", PNG_TYPES)
+@pytest.mark.parametrize("interlace", [False, True])
+def test_every_png_type_reads_as_the_reference(tmp_path, colour, depth, interlace):
+    data = _raw_png(colour, depth, interlace)
+    path = tmp_path / "a.png"
+    path.write_bytes(data)
+    want = LM6DDataset._read_image(str(path))
+    for got in (png.read_png(str(path)), png.decode_png(data, plain=True)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (1, 9), (3, 5), (9, 13), (16, 16)])
+@pytest.mark.parametrize("bits_pp", [1, 2, 4, 8, 16, 24, 48, 64])
+def test_adam7_cpp_matches_plain(size, bits_pp):
+    """The C++ reassembly against the numpy one, at sizes whose passes are
+    partly empty, for every pixel size (sub-byte ones unpacked)."""
+    h, w = size
+    colour, depth = {1: (0, 1), 2: (3, 2), 4: (0, 4), 8: (0, 8), 16: (4, 8), 24: (2, 8),
+                     48: (2, 16), 64: (6, 16)}[bits_pp]
+    data = _raw_png(colour, depth, True, h, w, seed=7)
+    raw = np.frombuffer(zlib.decompress(data[data.index(b"IDAT") + 4:
+                                             data.index(b"IEND") - 8]), np.uint8)
+    np.testing.assert_array_equal(png.adam7(raw, w, h, bits_pp),
+                                  png.adam7_plain(raw, w, h, bits_pp))
+    with pytest.raises(ValueError, match="wrong size"):
+        png.adam7(raw[:-1], w, h, bits_pp)
+
+
+@pytest.mark.parametrize("kind", ["P1", "P2", "P4", "P8", "label", "LA", "RGBA"])
+def test_pil_written_palette_and_alpha_pngs(tmp_path, kind):
+    rng = np.random.RandomState(3)
+    path = str(tmp_path / "a.png")
+    if kind.startswith("P"):
+        bits = int(kind[1])
+        im = Image.fromarray(rng.randint(0, 1 << bits, (29, 35)).astype(np.uint8), "P")
+        im.putpalette(list(rng.randint(0, 256, 3 << bits)))
+        im.save(path, bits=bits)
+        want_ids = np.asarray(im)
+    elif kind == "label":  # label ids 0-4 stored as palette indices
+        want_ids = rng.randint(0, 5, (29, 35)).astype(np.uint8)
+        im = Image.fromarray(want_ids, "P")
+        im.putpalette([0, 0, 0, 255, 0, 0, 0, 255, 0, 0, 0, 255, 255, 255, 0])
+        im.save(path)
+    else:
+        c = 2 if kind == "LA" else 4
+        Image.fromarray(rng.randint(0, 256, (29, 35, c)).astype(np.uint8), kind).save(path)
+        want_ids = None
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[25] == {"LA": 4, "RGBA": 6}.get(kind, 3)  # the colour type PIL wrote
+    want = LM6DDataset._read_image(path)
+    got = png.read_png(path)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(png.decode_png(data, plain=True), want)
+    if want_ids is not None:
+        np.testing.assert_array_equal(got, want_ids)

@@ -9,6 +9,11 @@ tests and ``chip_smoke.py`` (on a machine without PIL) share them:
 - :func:`encode_jpeg`: baseline JPEG (SOF0) with the standard tables of
   ITU-T T.81 Annex K (quality scaling as libjpeg's), 4:4:4, 4:2:2 or 4:2:0
   and grey, restart markers on request.  Used only to write fixtures.
+- :func:`encode_jpeg_progressive`: the same coefficients as a progressive
+  JPEG (SOF2) in libjpeg's default scan script (DC first and refine, AC
+  first with EOB runs, two AC refinements of luma, one of chroma).
+- :func:`encode_png_raw`: any PNG colour type and bit depth, Adam7
+  interlaced on request, rows filtered with each of the five filters.
 - :func:`write_bop_release`: BOP JSON (``scene_gt.json``, mm,
   ``depth_scale``, ``mask_visib``) or SIXD YAML (``gt.yml``/``info.yml``).
 - :func:`write_lm_original_release`: the ACCV'12 LINEMOD release
@@ -30,6 +35,7 @@ import json
 import os
 import shutil
 import struct
+import zlib
 
 import numpy as np
 
@@ -126,11 +132,10 @@ def _pack(vals: np.ndarray, lens: np.ndarray) -> bytes:
     return np.insert(data, ff + 1, 0).tobytes()
 
 
-def encode_jpeg(image: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
-                restart: int = 0) -> bytes:
-    """uint8 (H, W, 3) RGB or (H, W) grey -> baseline JPEG bytes (JFIF, one
-    interleaved scan, Annex K tables scaled to ``quality``; ``restart``
-    MCUs a restart interval, 0 for none)."""
+def _coefficients(image: np.ndarray, quality: int, subsampling: str):
+    """The quantized DCT coefficients of an image -> (sampling factors,
+    MCUs across, MCUs down, quantization tables, per component its
+    (my, mx, v, h, 64) zigzag-ordered blocks)."""
     img = np.asarray(image, np.uint8)
     h, w = img.shape[:2]
     if img.ndim == 2:
@@ -157,6 +162,35 @@ def encode_jpeg(image: np.ndarray, quality: int = 90, subsampling: str = "4:2:0"
         coef = np.einsum("ux,abxy,vy->abuv", _DCT, blk, _DCT).reshape(my_n * cv, mx_n * ch, 64)
         q = np.round(coef / qts[min(ci, 1)]).astype(np.int64)[..., NATURAL]
         comp_blocks.append(q.reshape(my_n, cv, mx_n, ch, 64).transpose(0, 2, 1, 3, 4))
+    return hv, mx_n, my_n, qts, comp_blocks
+
+
+def _headers(h: int, w: int, hv, qts, sof: int) -> bytearray:
+    """SOI, JFIF, the quantization tables and the frame header."""
+    out = bytearray(b"\xff\xd8")
+    out += _marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for tq in range(min(len(hv), 2)):
+        zz = qts[tq][NATURAL]
+        out += _marker(0xDB, bytes([tq]) + bytes(zz.astype(np.uint8).tolist()))
+    body = struct.pack(">BHHB", 8, h, w, len(hv))
+    for ci, (ch, cv) in enumerate(hv):
+        body += bytes([ci + 1, ch * 16 + cv, min(ci, 1)])
+    return out + _marker(sof, body)
+
+
+def _marker(m: int, body: bytes) -> bytes:
+    return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
+
+
+def encode_jpeg(image: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
+                restart: int = 0) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W) grey -> baseline JPEG bytes (JFIF, one
+    interleaved scan, Annex K tables scaled to ``quality``; ``restart``
+    MCUs a restart interval, 0 for none)."""
+    hv, mx_n, my_n, qts, comp_blocks = _coefficients(image, quality, subsampling)
+    h, w = np.asarray(image).shape[:2]
+    planes = hv
+    tables = [(_codes(DC_LUMA), _codes(AC_LUMA)), (_codes(DC_CHROMA), _codes(AC_CHROMA))]
 
     # every block in scan order: MCU by MCU, then component, then block row, column
     order = np.concatenate([cb.reshape(my_n * mx_n, -1, 64) for cb in comp_blocks], axis=1)
@@ -225,28 +259,253 @@ def encode_jpeg(image: np.ndarray, quality: int = 90, subsampling: str = "4:2:0"
             scan += bytes([0xFF, 0xD0 + ((i - 1) & 7)])
         scan += _pack(vals[bounds[i]:bounds[i + 1]], lens[bounds[i]:bounds[i + 1]])
 
-    def marker(m, body):
-        return bytes([0xFF, m]) + struct.pack(">H", len(body) + 2) + body
-
-    out = bytearray(b"\xff\xd8")
-    out += marker(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for tq in range(min(len(planes), 2)):
-        zz = qts[tq][NATURAL]
-        out += marker(0xDB, bytes([tq]) + bytes(zz.astype(np.uint8).tolist()))
-    sof = struct.pack(">BHHB", 8, h, w, len(planes))
-    for ci, (ch, cv) in enumerate(hv):
-        sof += bytes([ci + 1, ch * 16 + cv, min(ci, 1)])
-    out += marker(0xC0, sof)
+    out = _headers(h, w, hv, qts, 0xC0)
     for tc, specs in ((0, (DC_LUMA, DC_CHROMA)), (1, (AC_LUMA, AC_CHROMA))):
         for th, (counts, vv) in enumerate(specs[:min(len(planes), 2)]):
-            out += marker(0xC4, bytes([tc * 16 + th]) + bytes(counts) + bytes(vv))
+            out += _marker(0xC4, bytes([tc * 16 + th]) + bytes(counts) + bytes(vv))
     if restart:
-        out += marker(0xDD, struct.pack(">H", restart))
+        out += _marker(0xDD, struct.pack(">H", restart))
     sos = bytes([len(planes)])
     for ci in range(len(planes)):
         sos += bytes([ci + 1, min(ci, 1) * 17])
-    out += marker(0xDA, sos + bytes([0, 63, 0]))
+    out += _marker(0xDA, sos + bytes([0, 63, 0]))
     return bytes(out + scan + b"\xff\xd9")
+
+
+# Tables holding every symbol (fixtures need no compression): DC sizes
+# 0-11 at 4 bits; all 256 AC symbols, 254 at 8 bits and 2 at 9 (no code
+# of all ones).
+DC_ALL = ([0, 0, 0, 12] + [0] * 12, list(range(12)))
+AC_ALL = ([0] * 7 + [254, 2] + [0] * 7, list(range(256)))
+
+
+class _ScanWriter:
+    """The bits of one progressive scan, restart interval by interval,
+    with libjpeg's EOB-run and correction-bit buffering (jcphuff.c)."""
+
+    def __init__(self):
+        self.dc, self.ac = _codes(DC_ALL), _codes(AC_ALL)
+        self.out = bytearray()
+        self.vals: list[int] = []
+        self.lens: list[int] = []
+        self.eobrun, self.be, self.intervals = 0, [], 0
+
+    def bits(self, v: int, n: int) -> None:
+        if n:
+            self.vals.append(v)
+            self.lens.append(n)
+
+    def sym(self, table, s: int) -> None:
+        self.bits(int(table[0][s]), int(table[1][s]))
+
+    def flush_eob(self) -> None:
+        if self.eobrun:
+            nb = self.eobrun.bit_length() - 1
+            self.sym(self.ac, nb << 4)
+            self.bits(self.eobrun - (1 << nb), nb)
+            self.eobrun = 0
+        for b in self.be:
+            self.bits(b, 1)
+        self.be = []
+
+    def end_interval(self) -> None:
+        self.flush_eob()
+        if self.intervals:
+            self.out += bytes([0xFF, 0xD0 + ((self.intervals - 1) & 7)])
+        self.out += _pack(np.asarray(self.vals, np.int64), np.asarray(self.lens, np.int64))
+        self.vals, self.lens = [], []
+        self.intervals += 1
+
+
+def _size_bits(v: int) -> tuple[int, int]:
+    s = abs(v).bit_length()
+    return s, (v + (1 << s) - 1 if v < 0 else v)
+
+
+def _ac_first(wr: _ScanWriter, zz, ss: int, se: int, al: int) -> None:
+    r = 0
+    for k in range(ss, se + 1):
+        c = int(zz[k])
+        t = abs(c) >> al
+        if t == 0:
+            r += 1
+            continue
+        wr.flush_eob()
+        while r > 15:
+            wr.sym(wr.ac, 0xF0)
+            r -= 16
+        s, bits = _size_bits(t if c >= 0 else -t)
+        wr.sym(wr.ac, (r << 4) + s)
+        wr.bits(bits, s)
+        r = 0
+    if r:
+        wr.eobrun += 1
+        if wr.eobrun == 0x7FFF:
+            wr.flush_eob()
+
+
+def _ac_refine(wr: _ScanWriter, zz, ss: int, se: int, al: int) -> None:
+    absv = [abs(int(zz[k])) >> al for k in range(64)]
+    eob = max([k for k in range(ss, se + 1) if absv[k] == 1], default=0)
+    r, br = 0, []
+    for k in range(ss, se + 1):
+        t = absv[k]
+        if t == 0:
+            r += 1
+            continue
+        while r > 15 and k <= eob:
+            wr.flush_eob()
+            wr.sym(wr.ac, 0xF0)
+            r -= 16
+            for b in br:
+                wr.bits(b, 1)
+            br = []
+        if t > 1:  # nonzero in an earlier scan: one correction bit
+            br.append(t & 1)
+            continue
+        wr.flush_eob()
+        wr.sym(wr.ac, (r << 4) + 1)
+        wr.bits(0 if int(zz[k]) < 0 else 1, 1)
+        for b in br:
+            wr.bits(b, 1)
+        br, r = [], 0
+    if r or br:
+        wr.eobrun += 1
+        wr.be += br
+        if wr.eobrun == 0x7FFF or len(wr.be) > 937:
+            wr.flush_eob()
+
+
+def encode_jpeg_progressive(image: np.ndarray, quality: int = 90, subsampling: str = "4:2:0",
+                            restart: int = 0) -> bytes:
+    """uint8 (H, W, 3) RGB or (H, W) grey -> progressive JPEG bytes (SOF2)
+    of the coefficients :func:`encode_jpeg` writes, in libjpeg's default
+    scan script (``jpeg_simple_progression``): DC first (Al 1), luma AC
+    1-5 and 6-63 first (Al 2), chroma AC 1-63 first (Al 1), luma AC
+    refine (Al 1), DC refine, chroma then luma AC refine (Al 0); EOB runs
+    and tables that hold every symbol; ``restart`` MCUs a restart
+    interval."""
+    hv, mx_n, my_n, qts, comp_blocks = _coefficients(image, quality, subsampling)
+    h, w = np.asarray(image).shape[:2]
+    hmax, vmax = hv[0]
+    nc = len(hv)
+    if nc == 3:
+        script = [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+                  ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+                  ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+                  ((0,), 1, 63, 1, 0)]
+    else:
+        script = [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                  ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0)]
+    # each component's blocks as a (rows, columns, 64) grid
+    grids = [cb.transpose(0, 2, 1, 3, 4).reshape(my_n * cv, mx_n * ch, 64)
+             for cb, (ch, cv) in zip(comp_blocks, hv)]
+    out = _headers(h, w, hv, qts, 0xC2)
+    out += _marker(0xC4, bytes([0x00]) + bytes(DC_ALL[0]) + bytes(DC_ALL[1]))
+    out += _marker(0xC4, bytes([0x10]) + bytes(AC_ALL[0]) + bytes(AC_ALL[1]))
+    if restart:
+        out += _marker(0xDD, struct.pack(">H", restart))
+    for comps, ss, se, ah, al in script:
+        wr = _ScanWriter()
+        if len(comps) > 1:  # interleaved DC: MCU by MCU
+            units = [[(ci, my * hv[ci][1] + by, mx * hv[ci][0] + bx) for ci in comps
+                      for by in range(hv[ci][1]) for bx in range(hv[ci][0])]
+                     for my in range(my_n) for mx in range(mx_n)]
+        else:  # one component: its own block grid, one block a MCU
+            ci = comps[0]
+            cw, chh = -(-w * hv[ci][0] // hmax), -(-h * hv[ci][1] // vmax)
+            units = [[(ci, by, bx)] for by in range(-(-chh // 8)) for bx in range(-(-cw // 8))]
+        pred = [0] * nc
+        for m, unit in enumerate(units):
+            if restart and m and m % restart == 0:
+                wr.end_interval()
+                pred = [0] * nc
+            for ci, by, bx in unit:
+                zz = grids[ci][by, bx]
+                if ss == 0 and ah == 0:
+                    v = int(zz[0]) >> al
+                    s, bits = _size_bits(v - pred[ci])
+                    pred[ci] = v
+                    wr.sym(wr.dc, s)
+                    wr.bits(bits, s)
+                elif ss == 0:
+                    wr.bits((int(zz[0]) >> al) & 1, 1)
+                elif ah == 0:
+                    _ac_first(wr, zz, ss, se, al)
+                else:
+                    _ac_refine(wr, zz, ss, se, al)
+        wr.end_interval()
+        sos = bytes([len(comps)]) + b"".join(bytes([ci + 1, 0x00]) for ci in comps)
+        out += _marker(0xDA, sos + bytes([ss, se, ah * 16 + al])) + wr.out
+    return bytes(out + b"\xff\xd9")
+
+
+def _filter_rows(rows: np.ndarray, bpp: int, kinds) -> bytes:
+    """Rows (h, row bytes) with row y filtered by ``kinds[y % len(kinds)]``
+    (the PNG specification's five filters) -> the filtered stream."""
+    rows = rows.astype(np.int64)
+    out = bytearray()
+    prior = np.zeros(rows.shape[1], np.int64)
+    for y, cur in enumerate(rows):
+        kind = kinds[y % len(kinds)]
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])[:cur.size]
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prior[:-bpp]])[:cur.size]
+        if kind == 0:
+            pred = np.zeros_like(cur)
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = prior
+        elif kind == 3:
+            pred = (left + prior) // 2
+        else:
+            p = left + prior - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prior), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prior, upleft))
+        out += bytes([kind]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+        prior = cur
+    return bytes(out)
+
+
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def encode_png_raw(samples: np.ndarray, colour: int, depth: int, interlace: bool = False,
+                   palette: bytes | None = None, kinds=(0, 1, 2, 3, 4)) -> bytes:
+    """PNG bytes of ``samples`` ((H, W) or (H, W, channels) integers below
+    2**depth) as colour type ``colour`` at bit depth ``depth``, every
+    (reduced) image's rows filtered with ``kinds`` in turn, Adam7
+    interlaced when ``interlace``; ``palette`` (RGB triples) is written as
+    the PLTE chunk."""
+    a = np.asarray(samples)
+    a = a.reshape(a.shape[0], a.shape[1], -1).astype(np.int64)
+    h, w, c = a.shape
+    bpp = max(c * depth // 8, 1)
+
+    def pack(img):  # (h', w', c) samples -> (h', row bytes)
+        if depth == 16:
+            return img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1)
+        if depth == 8:
+            return img.astype(np.uint8).reshape(img.shape[0], -1)
+        bits = ((img.reshape(img.shape[0], -1)[..., None] >> np.arange(depth - 1, -1, -1)) & 1)
+        return np.packbits(bits.reshape(img.shape[0], -1).astype(np.uint8), axis=1)
+
+    if interlace:
+        parts = [a[y0::dy, x0::dx] for x0, y0, dx, dy in ADAM7]
+        raw = b"".join(_filter_rows(pack(p), bpp, kinds) for p in parts if p.size)
+    else:
+        raw = _filter_rows(pack(a), bpp, kinds)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour,
+                                                              0, 0, int(interlace)))
+    if palette is not None:
+        out += chunk(b"PLTE", palette)
+    return out + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
 
 
 # -- release layouts from a generated LM6d root ------------------------------------

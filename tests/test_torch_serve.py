@@ -1,8 +1,9 @@
 """deepim_tpu_torch.serve.PoseRefinerService on the CPU, and against
 deepim_tpu's service.
 
-The cases of tests/test_serve.py on the port (its int8 case becomes "int8
-raises NotImplementedError": int8 inference is not ported), the card
+The cases of tests/test_serve.py on the port (its int8_static case
+included: the service calibrates before the first request, and every
+result equals a direct ``refine_poses`` of the calibrated model), the card
 default, the torch checkpoint format, and parity: a JAX train state with
 randomised pose heads, saved by the reference's orbax checkpointing, read
 back as numpy and imported with ``import_flax_params``, gives both
@@ -171,9 +172,51 @@ def test_input_depth_model_requires_and_uses_obs_depth(tmp_path):
 
 @pytest.mark.parametrize("quant", ["int8", "int8_static"])
 def test_int8_service_is_not_ported(tmp_path, quant):
-    with pytest.raises(NotImplementedError, match="A10"):
-        PoseRefinerService(config_from_dict(_cfg(tmp_path, "serve_test_q", quant=quant)),
-                           load_checkpoint=False, device="cpu")
+    """The int8 modes serve (the test keeps its name from before int8 was
+    ported): int8_static calibrates at construction, on two synthetic
+    batches from generators seeded 4200 and 4201, and each result equals
+    the direct call of the calibrated model."""
+    from deepim_tpu_torch.data.synthetic import synthetic_batch
+    from deepim_tpu_torch.models.quant import calibrate_model
+
+    cfg = config_from_dict(_cfg(tmp_path, "serve_test_q", quant=quant))
+    svc = PoseRefinerService(cfg, load_checkpoint=False, gather_window_s=0.05, device="cpu")
+    try:
+        assert svc.model.quant == "int8"
+        assert bool(svc.model.act_scales) == (quant == "int8_static")
+        if quant == "int8_static":
+            k = torch.from_numpy(K)
+            calib = [synthetic_batch(torch.Generator().manual_seed(4200 + i), svc.assets, 4, k,
+                                     (H, W)) for i in range(2)]
+            want = calibrate_model(svc.model.with_act_scales(()), svc.assets, calib, k, (H, W),
+                                   num_iters=1, mode="max_c")
+            assert want.act_scales == svc.model.act_scales
+        obs, init, ks, cls, _ = _requests(svc, 3, seed=9)
+        out = svc.refine(obs, init, ks, cls)
+        assert out.shape == (3, 3, 4) and np.isfinite(out).all()
+        np.testing.assert_allclose(out, _direct(svc, obs, init, ks, cls), rtol=0, atol=1e-6)
+    finally:
+        svc.close()
+
+
+def test_int8_static_service_takes_calibration_batches(tmp_path):
+    cfg = config_from_dict(_cfg(tmp_path, "serve_test_qb", quant="int8_static"))
+    g = torch.Generator().manual_seed(3)
+    calib = [synthetic_batch(g, _plain_assets(cfg), 4, torch.from_numpy(K), (H, W))]
+    svc = PoseRefinerService(cfg, load_checkpoint=False, device="cpu",
+                             calibration_batches=calib, calibration_mode="max")
+    try:
+        assert all(isinstance(v, float) for _, v in svc.model.act_scales)  # scalar mode
+    finally:
+        svc.close()
+    with pytest.raises(ValueError, match="mode"):
+        PoseRefinerService(cfg, load_checkpoint=False, device="cpu", calibration_mode="maxc")
+
+
+def _plain_assets(cfg):
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+
+    return load_assets_and_names(cfg, device="cpu")[0]
 
 
 def test_default_device_is_the_card(tmp_path, monkeypatch):

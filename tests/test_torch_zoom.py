@@ -81,3 +81,67 @@ def test_interp_matrices(fn):
                          ).astype(np.float32)
     _close(getattr(rs_t, fn)(torch.from_numpy(src), 40),
            getattr(rs_j, fn)(jnp.asarray(src), 40))
+
+
+# -- the public helpers of deepim_tpu.ops (tests/test_ops.py) --------------------
+
+def _img(seed=3, h=16, w=20, c=3):
+    return np.random.RandomState(seed).rand(h, w, c).astype(np.float32)
+
+
+@pytest.mark.parametrize("box", [(0.0, 0.0, 1.0, 1.0), (2.3, -1.7, 2.0, 1.5),
+                                 (-4.0, 3.0, 0.7, 0.9)])
+def test_affine_grid_and_bilinear_sample_match_reference(box):
+    img = _img()
+    grid_j = rs_j.affine_grid((12, 14), *box)
+    grid_t = rs_t.affine_grid((12, 14), *box)
+    np.testing.assert_allclose(grid_t.numpy(), np.asarray(grid_j), rtol=0, atol=1e-6)
+    got = rs_t.bilinear_sample(torch.from_numpy(img), grid_t)
+    want = rs_j.bilinear_sample(jnp.asarray(img), grid_j)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    # the separable matmul form samples the same grid
+    sep = rs_t.resample_affine(torch.from_numpy(img), (12, 14),
+                               *(torch.tensor(v) for v in box))
+    np.testing.assert_allclose(sep.numpy(), got.numpy(), rtol=0, atol=1e-5)
+
+
+def test_bilinear_sample_cases_of_the_reference_tests():
+    img = torch.from_numpy(_img())
+    out = rs_t.bilinear_sample(img, rs_t.affine_grid((16, 20), 0.0, 0.0, 1.0, 1.0))
+    torch.testing.assert_close(out, img, atol=1e-6, rtol=0)  # identity grid
+    mid = rs_t.bilinear_sample(img, torch.tensor([2.0, 1.5]))
+    torch.testing.assert_close(mid, (img[1, 1] + img[1, 2]) / 2, atol=1e-6, rtol=0)
+    oob = rs_t.bilinear_sample(img, torch.tensor([-5.0, 4.0]), fill_value=0.0)
+    assert float(oob.abs().max()) == 0.0
+    batched = rs_t.bilinear_sample(img.expand(2, 16, 20, 3), torch.tensor([[[2.0, 1.5]]] * 2))
+    torch.testing.assert_close(batched[:, 0], mid.expand(2, 3))
+
+
+@pytest.mark.parametrize("fn", ["zoom_image", "zoom_flow", "unzoom_points"])
+def test_zoom_helpers_match_reference(fn):
+    box = (np.float32(30.5), np.float32(12.25), np.float32(1.6), np.float32(1.3))
+    bj = zoom_j.ZoomBox(*(jnp.asarray(v) for v in box))
+    bt = zoom_t.ZoomBox(*(torch.tensor(v) for v in box))
+    if fn == "unzoom_points":
+        uv = np.random.RandomState(1).rand(5, 2).astype(np.float32) * 40
+        got, want = zoom_t.unzoom_points(torch.from_numpy(uv), bt), zoom_j.unzoom_points(
+            jnp.asarray(uv), bj)
+    else:
+        img = _img(c=2, h=60, w=80) * 10
+        got = getattr(zoom_t, fn)(torch.from_numpy(img), bt, OUT)
+        want = getattr(zoom_j, fn)(jnp.asarray(img), bj, OUT)
+    scale = max(float(np.abs(np.asarray(want)).max()), 1.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5 * scale)
+
+
+def test_ops_exports_the_reference_helpers():
+    import deepim_tpu.ops as ops_j
+    import deepim_tpu_torch.ops as ops_t
+
+    for name in ("affine_grid", "bilinear_sample", "nearest_sample", "resample_affine",
+                 "ZoomBox", "model_corners", "compute_zoom_box", "zoom_intrinsics",
+                 "zoom_image", "zoom_flow", "unzoom_points", "calc_flow"):
+        assert hasattr(ops_j, name) and hasattr(ops_t, name), name
+    with pytest.raises(NotImplementedError):
+        ops_t.zoom_image(torch.zeros(4, 4, 1), zoom_t.ZoomBox(*torch.ones(4)), (2, 2),
+                         fill_value=1.0)
