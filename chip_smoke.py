@@ -32,7 +32,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
    larger of the two, and its share of the measured time, and the
    kernel's ptxas registers and spills.
 4. Slice parity: ``refine_poses`` on the card (kernels) against the same
-   call on the CPU (plain versions), float32, TF32 off, B=8.
+   call on the CPU (plain versions), float32, TF32 off, B=4.
 5. Main path: ``refine_poses`` at the headline protocol (B=128, K=4: 2
    iterations at 240x320 then 2 at 480x640, four procedural classes,
    back-face culling on, bf16 network, random weights from a seed; see
@@ -60,7 +60,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
 9. Card against CPU, float32: ``render_scene`` at B=4 with each synthesis
    run's assets and slot count, the chunked one z-merging two cols chunks
    (raster tolerance), ``refine_poses`` on the textured headline assets at
-   B=8 (atol 1e-3).
+   B=4 (atol 1e-3).
 10. Serving: ``PoseRefinerService`` at the flagship config
    (``synthetic_all_c2f``: four classes of at most 576 faces, the sorted
    kernel's route; 480x640, K=4 of which 2 coarse, bf16) with a device
@@ -143,8 +143,9 @@ Phases, one line each (any failure raises and the script exits nonzero):
    Paeth rows (poses/s, 4 sorted and 0 cols launches a batch, the two
    tables equal, the BOP CSV's real ids); ``--init-poses`` from a BOP CSV
    (every record matched, the same INIT row); the loader alone, the
-   refinement alone and the streamed loop over 4 passes of the test split
-   (ms a batch, the device's idle share from torch.profiler, the host's
+   refinement alone and the streamed loop over 4 passes of the test split,
+   each frame PNG decoded by one ``native.decode_png`` call (ms a batch,
+   the device's idle share from torch.profiler, the host's
    float32 conversion against the card's copy and conversion); the card's
    uint8/uint16 conversion bit for bit the host's over every value; one
    on-disk batch card against CPU (float32, within 1e-5); a root of
@@ -185,7 +186,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
    TOP/s); the int8 network card against CPU on identical inputs at B=2
    (float32: within 1e-5 of the outputs' scale, the encoder printed;
    bf16 printed), dynamic and static; ``refine_poses`` int8 card against
-   CPU at B=8 (atol 1e-2: an ulp of the zoom moves an int8 value a step);
+   CPU at B=4 (atol 1e-2: an ulp of the zoom moves an int8 value a step);
    ``PoseRefinerService`` at the flagship config with quant int8_static
    (calibrated at construction; 4 clients of 16 poses, each result
    against a direct ``refine_poses`` within 1e-3); ``cli.test --quant
@@ -193,6 +194,25 @@ Phases, one line each (any failure raises and the script exits nonzero):
    line, the table); a progressive JPEG and an Adam7-interlaced PNG of a
    480x640 frame rendered on the card, C++ against plain (arrays equal,
    ms a frame).
+18. The C++ host runtime (``deepim_tpu_torch/native.py`` over
+   ``csrc/deepim_native.cpp``) and the protocol tools: the library built
+   afresh (``g++ --version``, whether ``zlib.h`` is found); icospheres of
+   81,920 and 327,680 faces as ASCII PLY and OBJ through load, vertex
+   normals and decimation to 4,096, C++ against plain (geometry equal,
+   normals within 4 float32 ulps; ms of each); ``decode_png`` C++ against
+   plain on phase 15's frame at filter 0 and Paeth, RGB and 16-bit depth
+   (ms, arrays equal); ``PrefetchReader`` over phase 15's test split
+   against ``open().read()``; phase 15's streamed idle share (its frames
+   decoded one C++ call a PNG) beside PR 8's 74 %; a root of untextured
+   20,480-face OBJ models decimated in C++ to 3,996 faces through
+   ``cli.test`` as two seeds (4 cols launches a batch, the C++ calls
+   counted) and ``tools.seed_variance`` over the two; ``tools.
+   robustness_curve`` (64 samples, 5° and 30°: sorted) and
+   ``tools.decimation_ab`` (budgets 1,024, 4,096 and 0 on 64 samples:
+   cols, two face chunks at 20,480) on the seed-7 flagship checkpoint,
+   with their launches; ``tools.supervise_train`` on ``synthetic_small``
+   with its trainer killed (SIGKILL) after the first checkpoint: it
+   relaunches with ``--resume``, reaches the done line and exits 0.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -218,7 +238,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PARITY_B = 8
+PARITY_B = 4  # card-against-CPU refinement rows (8 until the script passed ~1,000 s)
 SCENE_PARITY_B = 4  # render_scene card against CPU (8 until the on-disk phase came)
 FLAGSHIP_PARITY_B = 4  # the service's flagship parity (8 until the training phase came)
 PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
@@ -1010,10 +1030,10 @@ def phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts
     the headline protocol, cols route), and refine_video over T=8 shared
     frames at B=32 (4 iterations, then 2 a frame), plain and with
     recovery armed; each run's launches counted from zero.  Then card
-    against CPU at float32, TF32 off: score_poses (B=8, with and without
+    against CPU at float32, TF32 off: score_poses (B=4, with and without
     observed depth), select_hypotheses on the same given hypotheses (4
     images x 4, margin 0, at least one challenger must win), plain
-    refine_video (T=3, B=8)."""
+    refine_video (T=3, B=4)."""
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.data.pairs import perturb_poses
     from deepim_tpu_torch.refine import (
@@ -2064,7 +2084,8 @@ DISK_DENSE_FRAMES = 8  # frames an object of the 20,480-face OBJ root
 DISK_TRAIN_STEPS = 20
 DISK_KEYFRAME_FRAMES = 8  # gen_video frames of the YCB-style sequence (every other a keyframe)
 DISK_PARITY_B = 4  # rows of one on-disk batch refined on card and CPU
-DISK_LOOP_PASSES = 4  # passes of the test split in the loader and loop timings
+DISK_LOOP_PASSES = 2  # passes of the test split in the loader and loop timings (4 until
+# the script passed ~1,000 s)
 DECODE_REPS = 5
 
 
@@ -2138,7 +2159,7 @@ def table_rows(text: str) -> list[str]:
             if ln.startswith(keep) or (ln[:1].isalpha() and "±" in ln)]
 
 
-def phase_disk(dev, card, rc, counts):
+def phase_disk(dev, card, rc, counts, work: str) -> dict:
     """The on-disk datasets at full width (experiments/cfgs/lm6d_all.yaml:
     480x640 frames and network input, bf16, K=4, test.init posecnn, four
     classes of at most 576 faces): generate an LM6d root on the card
@@ -2151,9 +2172,11 @@ def phase_disk(dev, card, rc, counts):
     uint8/uint16 conversion against the host's; a root of 20,480-face OBJ
     models with MTL and texture, decimated to 4,096 on load (the cols
     kernel); DISK_TRAIN_STEPS of cli.train on disk at syn_fraction 0.5;
-    the YCB-Video keyframe protocol with --posecnn-mat."""
+    the YCB-Video keyframe protocol with --posecnn-mat.  Its roots stay in
+    ``work``; returns what phase 18 reads of them: the filter-0 root, its
+    objects and test records, one frame's samples and the streamed loop's
+    idle share."""
     import shutil
-    import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2172,7 +2195,7 @@ def phase_disk(dev, card, rc, counts):
     from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
     from deepim_tpu_torch.train import train as train_mod
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(work) as tmp:
         root_a, root_b = f"{tmp}/lm6d", f"{tmp}/lm6d_paeth"
         path = disk_yaml(tmp, "lm6d_all.yaml", root=root_a)
         cfg = update_config(path)
@@ -2338,11 +2361,12 @@ def phase_disk(dev, card, rc, counts):
                   for k in ("obs_rgb", "obs_depth")}
         conv_ms = ms_per_call(lambda: lm6d.to_device(pinned, dev), 5)
         streamed = wall_ms / loop_batches
+        idle_share = 1 - busy_ms / wall_ms
         log("disk_loop", batch=bs, batches=loop_batches, passes=DISK_LOOP_PASSES,
             decode_threads=4, loader_ms_per_batch_filter0=loader_ms["filter0"],
             loader_ms_per_batch_paeth=loader_ms["paeth"], refine_ms_per_batch=refine_ms,
             streamed_ms_per_batch=streamed, device_busy_ms=busy_ms, wall_ms=wall_ms,
-            idle_share=1 - busy_ms / wall_ms,
+            idle_share=idle_share, decode="native.decode_png, one C++ call a PNG",
             loader_hidden_share=min(1.0, max(0.0, (loader_ms["paeth"] + refine_ms - streamed)
                                              / loader_ms["paeth"])),
             host_float_convert_ms_per_batch=stack_ms, card_copy_convert_ms_per_batch=conv_ms,
@@ -2513,6 +2537,8 @@ def phase_disk(dev, card, rc, counts):
         if matched != len(kf_recs) or len(decodes) != want_decodes:
             raise AssertionError(f"keyframe protocol: matched {matched}/{len(kf_recs)}, "
                                  f"{len(decodes)} decodes of {len(vds.keyframes())} keyframes")
+    return {"root": root_a, "objects": objects, "records": recs, "sample": sample,
+            "idle_share": idle_share, "streamed_ms_per_batch": streamed}
 
 
 RELEASE_FRAMES = 16  # generated frames an object, re-laid out as each release
@@ -3172,6 +3198,324 @@ def phase_int8_eval(dev, card, counts):
         raise AssertionError("cli.test --quant int8_static did not calibrate")
 
 
+NATIVE_SUBDIVS = (6, 7)  # icospheres of 81,920 and 327,680 faces
+NATIVE_MAX_FACES = 4096
+NATIVE_REPS = 3
+NATIVE_DENSE_FRAMES = 4  # frames an object of the untextured 20,480-face OBJ root
+NATIVE_TOOL_SAMPLES = 64
+NATIVE_SUPERVISED_STEPS, NATIVE_CHECKPOINT_EVERY = 10, 5
+NATIVE_NORMAL_ATOL = 4 * 2.0**-24  # numpy's normals sum in another order than the C++'s
+PR8_IDLE_SHARE = 0.74  # the streamed loop's idle share with the Python decode (PR 8)
+
+
+def write_obj(path: Path, mesh) -> None:
+    """An untextured OBJ of ``mesh`` (``v x y z r g b`` lines, 1-based faces)."""
+    lines = [f"v {x!r} {y!r} {z!r} {r!r} {g!r} {b!r}"
+             for (x, y, z), (r, g, b) in zip(mesh.vertices.tolist(), mesh.colors.tolist())]
+    lines += [f"f {a} {b} {c}" for a, b, c in (mesh.faces + 1).tolist()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def _host_ms(fn, reps=1):
+    """(the median host ms of ``reps`` calls of ``fn``, its last result)."""
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), out
+
+
+@contextlib.contextmanager
+def counting_native(calls: dict):
+    """Count the calls of ``deepim_tpu_torch.native``'s helpers (each C++
+    entry point's binding) into ``calls`` while the block runs."""
+    import threading
+
+    from deepim_tpu_torch import native
+
+    names = ("load_ply", "load_obj", "vertex_normals", "decimate", "decode_png")
+    saved = {n: getattr(native, n) for n in names}
+    lock = threading.Lock()  # decode_png is called from the decode pool's threads
+
+    def counted(name):
+        def call(*a, **kw):
+            with lock:
+                calls[name] = calls.get(name, 0) + 1
+            return saved[name](*a, **kw)
+        return call
+
+    for n in names:
+        setattr(native, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+
+
+def supervised_kill_run(cfg_path: str, log_path: str, dev, steps: int,
+                        timeout: float = 240.0) -> dict:
+    """``tools.supervise_train`` on ``cfg_path`` (``steps`` steps on
+    ``dev``), its trainer killed with SIGKILL once its first checkpoint is
+    whole -> the supervisor's exit code, output, the killed step and the
+    seconds.  Every process it starts is gone when it returns."""
+    import re
+    import signal
+    import subprocess
+
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.train import checkpoint_dir, latest_step
+
+    ckpt = checkpoint_dir(update_config(cfg_path))
+    cmd = [sys.executable, "-u", "-m", "deepim_tpu_torch.tools.supervise_train",
+           "--cfg", cfg_path, "--log", log_path, "--poll-sec", "1", "--",
+           "--num-steps", str(steps), "--device", str(dev)]
+    t0 = time.perf_counter()
+    sup = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                           text=True, start_new_session=True)
+    lines, killed, pids = [], None, []
+    try:
+        for line in sup.stdout:
+            lines.append(line)
+            m = re.search(r"launched pid (\d+)", line)
+            if m:
+                pids.append(int(m.group(1)))
+            if m and killed is None:
+                deadline = time.perf_counter() + timeout
+                while latest_step(ckpt) is None and time.perf_counter() < deadline:
+                    time.sleep(0.05)
+                killed = latest_step(ckpt)
+                os.killpg(pids[0], signal.SIGKILL)
+        code = sup.wait(timeout=timeout)
+    finally:
+        for pid in [sup.pid] + pids:  # the supervisor and each trainer's session
+            with contextlib.suppress(ProcessLookupError, PermissionError):
+                os.killpg(pid, signal.SIGKILL)
+        sup.wait()
+    return {"code": code, "out": "".join(lines), "killed_at": killed,
+            "latest": latest_step(ckpt), "seconds": time.perf_counter() - t0}
+
+
+def phase_native(dev, card, rc, counts, disk: dict, work: str):
+    """Phase 18: the port's C++ host runtime and the protocol tools.
+
+    The library built afresh (the compiler, whether ``zlib.h`` is there);
+    icospheres of 81,920 and 327,680 faces as ASCII PLY and OBJ through
+    load, normals and decimation to 4,096, C++ against plain (geometry
+    equal, normals within 4 float32 ulps), ms of each; ``decode_png`` C++
+    against plain on phase 15's frame at filter 0 and Paeth, RGB and 16-bit
+    depth; ``PrefetchReader`` over phase 15's test split against
+    ``open().read()``; phase 15's streamed idle share beside PR 8's; a
+    root of untextured 20,480-face OBJ models decimated in C++ to 3,996
+    faces, ``cli.test`` on it as two seeds (cols launches a batch, the
+    C++ calls made) and ``seed_variance`` over the two; ``robustness_curve``
+    and ``decimation_ab`` on the seed-7 flagship checkpoint (launches);
+    ``supervise_train`` on ``synthetic_small`` with its trainer killed
+    after the first checkpoint, run beside the last two (its trainers are
+    processes of their own; no host time is taken while it runs)."""
+    import re
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import yaml
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch import native
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.data import lm6d, png, toolkit
+    from deepim_tpu_torch.raster import mesh as mesh_mod
+    from deepim_tpu_torch.tools import decimation_ab, robustness_curve, seed_variance
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = Path(work) / "native"
+    tmp.mkdir()
+
+    # 1. The library, built afresh into a directory of its own.
+    cxx = os.environ.get("CXX", "g++")
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    zlib_h = subprocess.run([cxx, "-x", "c++", "-fsyntax-only", "-"], input="#include <zlib.h>\n",
+                            capture_output=True, text=True).returncode == 0
+    build_dir, png.BUILD_DIR = png.BUILD_DIR, tmp / "_build"
+    try:
+        build_ms, so = _host_ms(native.build)
+    finally:
+        png.BUILD_DIR = build_dir
+    log("native_build", compiler=repr(version.splitlines()[0]), zlib_h_found=zlib_h,
+        flags=" ".join(native.FLAGS + native.LIBS), library=so.name, build_s=build_ms / 1e3)
+    if not zlib_h:
+        raise AssertionError(f"{cxx} finds no zlib.h")
+
+    # 2. Dense meshes: load, normals, decimation, C++ against plain.
+    for sub in NATIVE_SUBDIVS:
+        m = mesh_mod.icosphere_mesh(0.05, subdivisions=sub)
+        ply, obj = tmp / f"ico{sub}.ply", tmp / f"ico{sub}.obj"
+        mesh_mod.save_ply(str(ply), m)
+        write_obj(obj, m)
+        for fmt, path, load in (("ply", ply, mesh_mod.load_ply), ("obj", obj, mesh_mod.load_obj)):
+            cpp_ms, got = _host_ms(lambda: load(str(path)), NATIVE_REPS)
+            plain_ms, want = _host_ms(lambda: load(str(path), plain=True))
+            equal = all(np.array_equal(getattr(got, f), getattr(want, f))
+                        for f in ("vertices", "colors", "faces"))
+            nrm = float(np.abs(got.normals - want.normals).max())
+            log("native_load", format=fmt, faces=got.num_faces, cpp_ms=cpp_ms, plain_ms=plain_ms,
+                geometry_equal=equal, normals_max_diff=nrm, card=repr(card))
+            if not equal or got.num_faces != m.num_faces or not nrm <= NATIVE_NORMAL_ATOL:
+                raise AssertionError(f"the C++ {fmt} parse differs from the plain one")
+        cpp_ms, got = _host_ms(lambda: native.vertex_normals(m.vertices, m.faces), NATIVE_REPS)
+        plain_ms, want = _host_ms(
+            lambda: mesh_mod.compute_vertex_normals(m.vertices, m.faces, plain=True))
+        nrm = float(np.abs(got - want).max())
+        log("native_normals", faces=m.num_faces, cpp_ms=cpp_ms, plain_ms=plain_ms,
+            max_diff=nrm, atol=NATIVE_NORMAL_ATOL)
+        cpp_ms, got = _host_ms(lambda: mesh_mod.decimate_mesh(m, NATIVE_MAX_FACES), NATIVE_REPS)
+        plain_ms, want = _host_ms(lambda: mesh_mod.decimate_mesh(m, NATIVE_MAX_FACES, plain=True))
+        same = all(np.array_equal(getattr(got, a)[got.faces], getattr(want, a)[want.faces])
+                   for a in ("vertices", "colors"))
+        log("native_decimate", faces=m.num_faces, to=got.num_faces, budget=NATIVE_MAX_FACES,
+            cpp_ms=cpp_ms, plain_ms=plain_ms, triangles_equal=same)
+        if not nrm <= NATIVE_NORMAL_ATOL or not same or got.num_faces != want.num_faces:
+            raise AssertionError(f"C++ normals or decimation differ at {m.num_faces} faces")
+
+    # 3. decode_png on phase 15's frame, filter 0 and Paeth, RGB and depth.
+    rgb, depth = disk["sample"][:2]
+    for name, image in (("rgb", rgb), ("depth16", depth)):
+        for kind in (0, 4):
+            data = encode_filtered(image, kind)
+            cpp_ms, got = _host_ms(lambda: native.decode_png(data), DECODE_REPS)
+            plain_ms, want = _host_ms(lambda: png.decode_png(data, plain=True))
+            py_ms, _ = _host_ms(lambda: png.decode_png(data), DECODE_REPS)
+            equal = (got is not None and got.dtype == want.dtype
+                     and np.array_equal(got, want) and np.array_equal(got, image))
+            log("native_decode", image=name, filter=kind, size=f"{image.shape[0]}x{image.shape[1]}",
+                cpp_ms=cpp_ms, plain_ms=plain_ms, zlib_and_unfilter_ms=py_ms, equal=equal,
+                card=repr(card))
+            if not equal:
+                raise AssertionError(f"decode_png of {name} filter {kind} differs")
+
+    # 4. The prefetcher over phase 15's test split.
+    ds = lm6d.LM6DDataset(disk["root"], disk["objects"])
+    paths = [ds._obs(r.scene, r.frame, k) for r in disk["records"]
+             for k in ("color.png", "depth.png", "label.png")]
+
+    def prefetched():
+        with native.PrefetchReader(paths, num_threads=4) as reader:
+            return [data for _, data in reader]
+
+    cpp_ms, got = _host_ms(prefetched)
+    plain_ms, want = _host_ms(lambda: [Path(p).read_bytes() for p in paths])
+    log("native_prefetch", files=len(paths), mib=sum(map(len, want)) / 2**20, threads=4,
+        cpp_ms=cpp_ms, plain_ms=plain_ms, equal=got == want)
+    if got != want:
+        raise AssertionError("PrefetchReader read other bytes than open().read()")
+    log("native_loader", idle_share=disk["idle_share"], pr8_idle_share=PR8_IDLE_SHARE,
+        streamed_ms_per_batch=disk["streamed_ms_per_batch"],
+        decode="one native.decode_png call a PNG (phase 15's disk_loop)", card=repr(card))
+
+    # supervise_train runs beside steps 5-6 (its trainers are processes of
+    # their own; no host timing is taken from here on): synthetic_small,
+    # the trainer killed after its first checkpoint.
+    spec = yaml.safe_load((ROOT / "experiments/cfgs/synthetic_small.yaml").read_text())
+    spec["output_dir"] = str(tmp)
+    spec["train"].update(log_every=1, checkpoint_every=NATIVE_CHECKPOINT_EVERY)
+    p = tmp / "synthetic_small.yaml"
+    p.write_text(yaml.safe_dump(spec))
+    pool = ThreadPoolExecutor(1)
+    supervised = pool.submit(supervised_kill_run, str(p), str(tmp / "supervise.log"), dev,
+                             NATIVE_SUPERVISED_STEPS)
+    pool.shutdown(wait=False)
+
+    # 5. A root of untextured 20,480-face OBJ models, decimated in C++;
+    # cli.test as two seeds, then seed_variance over the two.
+    dense = ["icosphere_dense", "icosphere_dense2"]
+    root = tmp / "lm6d_dense"
+    d = update_config(experiment_yaml(str(tmp), "lm6d_all.yaml")).dataset
+    k_np = np.array([[d.fx, 0, d.cx], [0, d.fy, d.cy], [0, 0, 1]], np.float32)
+    toolkit.gen_observed(str(root), {o: mesh_mod.PROCEDURAL_MESHES[o]() for o in dense}, k_np,
+                         (d.image_height, d.image_width), frames_per_obj=NATIVE_DENSE_FRAMES,
+                         device=dev)
+    for o in dense:
+        (root / "models" / o / "textured.ply").unlink()
+        write_obj(root / "models" / o / "textured.obj", mesh_mod.PROCEDURAL_MESHES[o]())
+    p = disk_yaml(str(tmp), "lm6d_all.yaml", root=str(root), objects=dense)
+    cfg = update_config(p)
+    calls: dict = {}
+    with counting_native(calls):
+        a_dense = load_assets_and_names(cfg, eval_set=True, device="cpu")[0]
+    n_rec = sum(len(lm6d.LM6DDataset(str(root), dense).gt_roidb(o, "test")) for o in dense)
+    batches = -(-n_rec // cfg.test.batch_size)
+    runs = []
+    for seed in (0, 1):
+        cfg_s = dataclasses.replace(cfg, experiment=f"{cfg.experiment}_seed{seed}")
+        save_checkpoint(checkpoint_dir(cfg_s), hl.SEED + seed,
+                        hl.random_model(len(dense), seed=hl.SEED + seed).state_dict())
+        run_calls: dict = {}
+        with counting_native(run_calls):
+            text, seconds, launches, _ = run_cli(cli_test.main, [
+                "--cfg", p, "--device", str(dev), "--seed", str(seed)])
+        counts[f"native_dense_test_seed{seed}"] = launches
+        runs.append(str(tmp / cfg_s.experiment))
+        log("native_dense_test", seed=seed, models="20,480-face untextured OBJ",
+            faces_after_load=a_dense.tri_pos.shape[2], records=n_rec, batches=batches,
+            cols_per_batch=launches["raster_cols"] / batches,
+            sorted_per_batch=launches["raster_sorted"] / batches, cpp_calls=run_calls,
+            seconds=seconds, mean_row=_row(text, "MEAN"), card=repr(card))
+        if (launches["raster_cols"] != batches * cfg.test.test_iter
+                or run_calls.get("decimate", 0) != len(dense)
+                or run_calls.get("decode_png", 0) < 2 * n_rec):
+            raise AssertionError(f"the dense root missed the cols kernel or the C++: "
+                                 f"{launches} {run_calls}")
+    if a_dense.tri_pos.shape[2] != 3996 or calls.get("load_obj") != len(dense):
+        raise AssertionError(f"the dense OBJs loaded to {a_dense.tri_pos.shape[2]} faces "
+                             f"through {calls}")
+    text, _, _, _ = run_cli(seed_variance.main, runs)
+    log("native_seed_variance", runs=len(runs), sigma_row=_row(text, "sigma"))
+
+    # 6. robustness_curve and decimation_ab on the seed-7 flagship checkpoint.
+    p = experiment_yaml(str(tmp), "synthetic_all_c2f.yaml")
+    cfg = update_config(p)
+    save_checkpoint(checkpoint_dir(cfg), hl.SEED,
+                    hl.random_model(len(cfg.dataset.objects)).state_dict())
+    text, seconds, launches, _ = run_cli(robustness_curve.main, [
+        "--cfg", p, "--samples", str(NATIVE_TOOL_SAMPLES), "--rot-levels", "5,30",
+        "--device", str(dev)])
+    counts["native_robustness_curve"] = launches
+    rows = [ln for ln in text.splitlines() if re.match(r"\s+\d+\.\d+\s", ln)]
+    log("native_robustness_curve", samples=NATIVE_TOOL_SAMPLES, levels="5,30", rows=rows,
+        launches=launches, seconds=seconds)
+    if len(rows) != 2 or not launches["raster_sorted"]:
+        raise AssertionError(f"robustness_curve: rows {rows}, launches {launches}")
+    out = tmp / "decimation_ab.json"
+    text, seconds, launches, _ = run_cli(decimation_ab.main, [
+        "--cfg", p, "--budgets", "1024,4096,0", "--samples", str(NATIVE_TOOL_SAMPLES),
+        "--device", str(dev), "--results-out", str(out)])
+    counts["native_decimation_ab"] = launches
+    res = json.loads(out.read_text())["results"]
+    faces = [r["faces"] for r in res["rows"]]
+    log("native_decimation_ab", samples=res["samples"], faces=faces,
+        add=[r["mean"]["add(-s)_0.1d"] for r in res["rows"]], launches=launches,
+        seconds=seconds, card=repr(card))
+    if faces != [1008, 3996, 20480] or not launches["raster_cols"]:
+        raise AssertionError(f"decimation_ab: faces {faces}, launches {launches}")
+
+    # 7. supervise_train (started after step 4): its trainer was killed
+    # after the first checkpoint.
+    sup = supervised.result()
+    trainer_log = (tmp / "supervise.log").read_text()
+    resumed = f"resumed from step {sup['killed_at']}" in trainer_log
+    log("native_supervise", steps=NATIVE_SUPERVISED_STEPS, killed_at=sup["killed_at"],
+        relaunches=sup["out"].count("resume #"), resumed=resumed, exit_code=sup["code"],
+        latest_checkpoint=sup["latest"], seconds=sup["seconds"])
+    if (sup["code"] != 0 or not resumed or "training complete" not in sup["out"]
+            or sup["latest"] != NATIVE_SUPERVISED_STEPS):
+        raise AssertionError(f"supervise_train did not recover:\n{sup['out']}")
+    log("native_phase", seconds=time.perf_counter() - t_phase)
+
+
 def png_filters(data: bytes) -> tuple[int, ...]:
     """The distinct row filters of a PNG's rows."""
     import struct
@@ -3255,6 +3599,7 @@ def main() -> int:
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import _build
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3272,6 +3617,7 @@ def main() -> int:
     PTXAS.update(ptxas_summary(info.log))
 
     kernels = run_phases(dev, card)
+    log("done", seconds=time.perf_counter() - t_start, card=repr(card))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
@@ -3279,10 +3625,28 @@ def main() -> int:
     return 0
 
 
+class Laps:
+    """``laps(name)`` logs ``[phase_time]``: the wall seconds since the
+    previous lap (or since the laps began), so a run shows which phases to
+    cut when the script nears its time limit."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        log("phase_time", name=name, seconds=now - self.t)
+        self.t = now
+
+
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-17 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-18 on ``dev``; returns the kernels' JSON record."""
+    import tempfile
+
     from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.raster import raster_cuda as rc
+
+    laps = Laps()
 
     assets = hl.headline_assets(dev)
     sort_assets = hl.headline_assets(dev, dense_sphere=False)
@@ -3290,9 +3654,11 @@ def run_phases(dev, card: str) -> list[dict]:
     log("setup", faces=assets.tri_pos.shape[2], sort_route_faces=sort_assets.tri_pos.shape[2],
         lod=assets.lod is not None, classes=assets.num_classes, batch=hl.B)
     record = phase_kernels(dev, assets, sort_assets, init, ks, cls, rc)
+    laps("kernels")
 
     model_f32 = hl.random_model(assets.num_classes, dtype=torch.float32).to(dev)
     phase_parity(model_f32, assets, obs, init, ks, cls)
+    laps("parity")
 
     model = copy.deepcopy(model_f32)
     model.dtype = torch.bfloat16
@@ -3342,6 +3708,7 @@ def run_phases(dev, card: str) -> list[dict]:
         poses_per_s_serial_median5=hl.B / statistics.median(serial),
         serial_ms=[s * 1e3 for s in serial], **hl.headline_fields("none"), dtype="bf16",
         card=repr(card))
+    laps("main_path_and_headline")
 
     # The top-k kernel, scene synthesis, the top-k route, and
     # card-against-CPU parity of the scene render and textured refinement.
@@ -3351,27 +3718,42 @@ def run_phases(dev, card: str) -> list[dict]:
     counts.update(phase_synthesis(dev, card, rc, runs, record))
     counts.update(phase_topk_route(dev, rc, assets, tex_assets, init, ks, cls))
     phase_scene_parity(dev, rc, model_f32, runs, obs, init, ks, cls)
+    laps("topk_synthesis_scene_parity")
 
     # The service, multi-hypothesis selection and tracking.
     phase_service(dev, card, rc, counts)
+    laps("service")
     phase_selection_and_tracking(dev, card, rc, model, model_f32, assets, counts)
+    laps("selection_and_tracking")
 
     # Training at the flagship config.
     phase_training(dev, card, rc, counts)
+    laps("training")
 
     # Evaluation, and the video toolkit with tracking.
     phase_evaluation(dev, card, rc, counts)
+    laps("evaluation")
     phase_tracking(dev, card, rc, counts)
+    laps("tracking")
 
-    # The on-disk datasets: generation, decoding, cli.test and cli.train.
-    phase_disk(dev, card, rc, counts)
+    with tempfile.TemporaryDirectory() as work:
+        # The on-disk datasets: generation, decoding, cli.test and cli.train
+        # (their roots stay in ``work`` for phase 18).
+        disk = phase_disk(dev, card, rc, counts, work)
+        laps("disk")
 
-    # Public releases: converters, validator, JPEG, MXNet weights, runbook.
-    phase_releases(dev, card, rc, counts)
+        # Public releases: converters, validator, JPEG, MXNet weights, runbook.
+        phase_releases(dev, card, rc, counts)
+        laps("releases")
 
-    # int8 inference: the headline's quant modes, the int8 products layer by
-    # layer, card against CPU, the int8_static service and cli.test.
-    phase_int8(dev, card, rc, counts, assets, obs, init, ks, cls)
+        # int8 inference: the headline's quant modes, the int8 products layer
+        # by layer, card against CPU, the int8_static service and cli.test.
+        phase_int8(dev, card, rc, counts, assets, obs, init, ks, cls)
+        laps("int8")
+
+        # The C++ host runtime and the protocol tools.
+        phase_native(dev, card, rc, counts, disk, work)
+        laps("native")
 
     kernels = []
     for kname, src, line, timed_case in (

@@ -26,7 +26,11 @@ fused synthesize-and-train step (:mod:`deepim_tpu_torch.train`) driven by
 (:mod:`deepim_tpu_torch.eval`), ``python -m deepim_tpu_torch.cli.test`` on
 the generated sets, ``cli.train_test``, and the video toolkit
 (:mod:`deepim_tpu_torch.data.video`: sequences written with the port's
-own PNG codec, ``gen_video`` with its manifest) with ``cli.track``.  All
-three rasterizer kernels are hand-written CUDA (``raster/csrc``), built
-at first use on the card.
+own PNG codec, ``gen_video`` with its manifest) with ``cli.track``; and
+the host runtime (:mod:`deepim_tpu_torch.native`: its own copy of the
+reference's C++ for mesh parsing, vertex normals, decimation, PNG decoding
+and the prefetch reader, routed where the reference routes it) with the
+protocol tools (:mod:`deepim_tpu_torch.tools`).  All three rasterizer
+kernels are hand-written CUDA (``raster/csrc``), built at first use on the
+card.
 """

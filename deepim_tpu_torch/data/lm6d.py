@@ -14,17 +14,20 @@ Port of ``deepim_tpu/data/lm6d.py``.  The layout:
       init_poses/{obj}_{split}.txt              # optional external inits,
                                                 # one 3x4 (12 floats) a line
 
-Images go through :mod:`deepim_tpu_torch.data.png` (its C++ row
-unfilter); poses are ``np.savetxt`` text, as in the reference, so each
-package reads the other's files.
+Frames are read as the reference reads them: each PNG by one call of the
+C++ decoder (:func:`deepim_tpu_torch.native.decode_png`, inflate and
+unfilter without the GIL), and a PNG type it refuses by
+:func:`deepim_tpu_torch.data.png.decode_png`; images are written by
+:mod:`deepim_tpu_torch.data.png`.  Poses are ``np.savetxt`` text, as in the
+reference, so each package reads the other's files.
 
 The readers (``gt_roidb``, ``load_frame``, ``load_rendered``,
 ``make_eval_arrays``, ``apply_bop_init``) return what the reference's do.
 The streaming loaders differ in form, not in content:
 
-- Frames decode on a thread pool (``load_frames_prefetched``): ``zlib``
-  and the C++ unfilter run without the GIL.  The reference reads files on
-  C++ threads and decodes on the Python side.
+- ``load_frames_prefetched`` reads the files on the C++ prefetcher's
+  threads, as the reference does, and decodes them on a thread pool where
+  the reference decodes on its one Python thread.
 - ``iter_frame_batches`` and ``TrainBatcher`` yield torch tensors stacked
   into a ring of reused host buffers, pinned when ``pin_memory``, and
   carry the PNGs' samples as they are: RGB uint8 and depth as the uint16
@@ -51,7 +54,8 @@ from functools import partial
 import numpy as np
 import torch
 
-from deepim_tpu_torch.data.png import read_png, read_size, write_png
+from deepim_tpu_torch import native
+from deepim_tpu_torch.data.png import decode_png, read_size, write_png
 
 DEPTH_FACTOR = 1000.0  # uint16 depth png = metres * 1000 (reference LM6d)
 
@@ -66,6 +70,15 @@ class FrameRecord:
     class_idx: int
     pose: np.ndarray  # (3, 4) GT
     init_pose: np.ndarray | None  # (3, 4) external init (PoseCNN-style)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG bytes -> the array of ``LM6DDataset._read_image``: the C++
+    decoder's, or for a type it refuses :func:`png.decode_png`'s (the
+    reference's ``deepim_tpu/data/lm6d.py:138-148``, with PIL's place taken
+    by the port's codec)."""
+    img = native.decode_png(data)
+    return img if img is not None else decode_png(data)
 
 
 def _to_float(rgb: np.ndarray, depth: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -121,8 +134,10 @@ class LM6DDataset:
 
     @staticmethod
     def _read_image(path: str) -> np.ndarray:
-        """A PNG as written by either package (uint8 RGB or grey, uint16)."""
-        return read_png(path)
+        """A PNG file through :func:`decode_image` (uint8 RGB or grey,
+        uint16 depth, as written by either package)."""
+        with open(path, "rb") as f:
+            return decode_image(f.read())
 
     # -- reading ---------------------------------------------------------------
 
@@ -162,11 +177,11 @@ class LM6DDataset:
     def load_frame_raw(self, rec: FrameRecord) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The frame's PNG samples: RGB uint8 (H, W, 3), depth uint16 (H,
         W), and the object's mask (the label == class + 1, else depth > 0)."""
-        rgb = read_png(self._obs(rec.scene, rec.frame, "color.png"))
-        depth = read_png(self._obs(rec.scene, rec.frame, "depth.png"))
+        rgb = self._read_image(self._obs(rec.scene, rec.frame, "color.png"))
+        depth = self._read_image(self._obs(rec.scene, rec.frame, "depth.png"))
         label_path = self._obs(rec.scene, rec.frame, "label.png")
         if os.path.exists(label_path):
-            mask = read_png(label_path) == (rec.class_idx + 1)
+            mask = self._read_image(label_path) == (rec.class_idx + 1)
         else:
             mask = depth > 0
         return rgb, depth, mask
@@ -181,8 +196,8 @@ class LM6DDataset:
         """Pre-rendered perturbed view ``idx`` of ``rec``'s frame (written by
         ``toolkit.gen_rendered``) -> RGB in [0, 1], depth (m), source pose."""
         rgb, depth = _to_float(
-            read_png(self._ren(rec.obj, rec.scene, rec.frame, idx, "color.png")),
-            read_png(self._ren(rec.obj, rec.scene, rec.frame, idx, "depth.png")))
+            self._read_image(self._ren(rec.obj, rec.scene, rec.frame, idx, "color.png")),
+            self._read_image(self._ren(rec.obj, rec.scene, rec.frame, idx, "depth.png")))
         pose = np.loadtxt(self._ren(rec.obj, rec.scene, rec.frame, idx, "pose.txt"),
                           dtype=np.float32).reshape(3, 4)
         return {"ren_rgb": rgb, "ren_depth": depth, "pose_src": pose}
@@ -254,9 +269,29 @@ def thread_pool(num_threads: int = 4) -> ThreadPoolExecutor:
 
 def load_frames_prefetched(dataset: LM6DDataset, records: list[FrameRecord],
                            num_threads: int = 4) -> list[dict]:
-    """``dataset.load_frame`` of every record, decoded on ``num_threads``
-    threads, in order."""
-    return list(thread_pool(num_threads).map(dataset.load_frame, records))
+    """``dataset.load_frame`` of every record, in order: the files read by
+    the C++ :class:`~deepim_tpu_torch.native.PrefetchReader` on
+    ``num_threads`` threads, each PNG decoded by :func:`decode_image` on the
+    decode pool (``deepim_tpu/data/lm6d.py §load_frames_prefetched``).  A
+    frame whose colour or depth file cannot be read goes through
+    ``load_frame``, which raises naming it."""
+    paths = [dataset._obs(r.scene, r.frame, kind) for r in records
+             for kind in ("color.png", "depth.png", "label.png")]
+    datas: list[bytes | None] = [None] * len(paths)
+    with native.PrefetchReader(paths, num_threads=num_threads) as reader:
+        for idx, data in reader:
+            datas[idx] = data
+
+    def frame(i: int) -> dict:
+        rec, (cd, dd, ld) = records[i], datas[3 * i:3 * i + 3]
+        if cd is None or dd is None:
+            return dataset.load_frame(rec)
+        depth = decode_image(dd)
+        mask = decode_image(ld) == (rec.class_idx + 1) if ld is not None else depth > 0
+        rgb, depth = _to_float(decode_image(cd), depth)
+        return {"obs_rgb": rgb, "obs_depth": depth, "obs_mask": mask}
+
+    return list(thread_pool(num_threads).map(frame, range(len(records))))
 
 
 def prefetch_iter(it, depth: int = 1):

@@ -141,12 +141,15 @@ def unfilter_plain(raw: np.ndarray, h: int, row_bytes: int, bpp: int) -> np.ndar
     return out
 
 
-def build_library(src: Path, stem: str) -> Path:
-    """Compile the C++ source ``src`` into ``_build/{stem}_{hash}.so`` unless
-    this exact build exists -> the shared library.  Concurrent builders
-    (test workers) each compile into a temporary directory and rename
-    atomically.  A failed build raises, naming the compiler's output."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + src.read_bytes())
+def build_library(src: Path, stem: str, flags: tuple[str, ...] = CXX_FLAGS,
+                  libs: tuple[str, ...] = ()) -> Path:
+    """Compile the C++ source ``src`` with ``flags``, linking ``libs`` (such
+    as ``-lz``), into ``_build/{stem}_{hash}.so`` unless this exact build
+    exists -> the shared library.  The hash covers the source, the flags
+    and the libraries.  Concurrent builders (test workers) each compile
+    into a temporary directory and rename atomically.  A failed build
+    raises, naming the compiler's output."""
+    h = hashlib.sha256(" ".join(flags + libs).encode() + src.read_bytes())
     out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -155,7 +158,7 @@ def build_library(src: Path, stem: str) -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         so = f"{tmp}/lib.so"
         try:
-            proc = subprocess.run([cxx, *CXX_FLAGS, "-o", so, str(src)],
+            proc = subprocess.run([cxx, *flags, "-o", so, str(src), *libs],
                                   capture_output=True, text=True)
         except OSError as e:
             raise RuntimeError(f"cannot run the C++ compiler {cxx!r} to build "

@@ -144,11 +144,12 @@ class VideoDataset:
     def load_frame_samples(self, seq: str, frame: str):
         """One frame's PNG samples, decoded once: RGB uint8, depth uint16
         (zeros without a depth image) and the label (None without one)."""
-        rgb = read_png(self._vid(seq, frame, "color.png"))
+        read = self._frames._read_image
+        rgb = read(self._vid(seq, frame, "color.png"))
         dpath = self._vid(seq, frame, "depth.png")
-        depth = read_png(dpath) if os.path.exists(dpath) else np.zeros(rgb.shape[:2], np.uint16)
+        depth = read(dpath) if os.path.exists(dpath) else np.zeros(rgb.shape[:2], np.uint16)
         lpath = self._vid(seq, frame, "label.png")
-        return rgb, depth, read_png(lpath) if os.path.exists(lpath) else None
+        return rgb, depth, read(lpath) if os.path.exists(lpath) else None
 
     def load_frame_raw(self, seq: str, frame: str) -> dict:
         """One frame's shared images (RGB in [0, 1], metric depth, the raw

@@ -2,7 +2,8 @@
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    python3 -m deepim_tpu_torch.profile_loader [--frames 64] [--passes 4] [--reps 2]
+    python3 -m deepim_tpu_torch.profile_loader [--frames 64] [--passes 4] [--reps 2] \
+        [--tree DIR]
 
 Generates an LM6d root at ``experiments/cfgs/lm6d_all.yaml`` on the card
 (``gen_procedural_dataset``: 480x640, four classes, ``--frames`` an
@@ -17,9 +18,23 @@ best ms a batch of ``--reps``:
 3. ``[streamed]``: refinement fed by the loader as ``cli.test`` feeds it
    (2 and 4 threads; 4 without the prefetch thread; 4 with a 0.2 ms GIL
    switch interval).
-4. ``[contention]``: refinement of loaded batches while 4 threads spin on
-   ``decode_png`` of one frame, then on ``zlib.decompress`` of 900 KB:
-   what decoding on threads of the launching process costs its launches.
+4. ``[idle]``: the device's busy and idle share over the streamed loop (4
+   threads, prefetched), from ``torch.profiler``'s CUDA activity.
+5. ``[contention]``: refinement of loaded batches while 4 threads spin on
+   ``png.decode_png`` of one frame (Python ``zlib`` and the C++
+   unfilter), on ``native.decode_png`` (one C++ call; where the package
+   has it) and on ``zlib.decompress`` of 900 KB: what decoding on threads
+   of the launching process costs its launches.
+6. ``[disk_test]`` and ``[disk_train]``: the on-disk entry points on the
+   root, as ``chip_smoke.py`` phase 15 runs them: ``cli.test`` (its
+   poses/s, warm; the seed-7 model as a port checkpoint) and
+   ``TRAIN_STEPS`` of ``cli.train`` at ``syn_fraction`` 0.5 (the median
+   ms of a disk step and of a synthetic one, the first of each left out,
+   and the loader wait a disk step of its ``TrainBatcher``).
+
+``--tree DIR`` measures the ``deepim_tpu_torch`` of another checkout (say,
+the parent commit unpacked into a gitignored ``_parent/``) with these
+readings, so two trees compare in one call, in turns.
 """
 
 from __future__ import annotations
@@ -36,8 +51,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-from deepim_tpu_torch import headline as hl
 
 
 def log(phase: str, **fields) -> None:
@@ -81,16 +94,45 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=64, help="generated frames an object")
     ap.add_argument("--passes", type=int, default=4, help="passes over the test split")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="measure the deepim_tpu_torch package of this checkout")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_loader: no CUDA device")
-    run(torch.device("cuda", 0), hl.card(), args.frames, args.passes, args.reps)
+    if args.tree is not None:
+        sys.path.insert(0, str(args.tree.resolve()))
+        for name in [m for m in sys.modules if m.split(".")[0] == "deepim_tpu_torch"]:
+            del sys.modules[name]  # re-imported from the tree
+    from deepim_tpu_torch import headline as hl
+
+    run(torch.device("cuda", 0), hl.card(), args.frames, args.passes, args.reps,
+        tree=str(args.tree or "."))
     return 0
 
 
+def device_busy_share(fn) -> tuple[float, float]:
+    """torch.profiler (CUDA activity) over ``fn()`` -> (the device's busy
+    ms, summed over its kernels and copies, the wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3, wall
+
+
 def run(dev: torch.device, card: str, frames: int, passes: int, reps: int,
-        cfg_path: str = "experiments/cfgs/lm6d_all.yaml") -> None:
-    """The four readings on ``dev`` (the card; pinning needs it)."""
+        cfg_path: str = "experiments/cfgs/lm6d_all.yaml", tree: str = ".") -> None:
+    """The six readings on ``dev`` (the card; pinning needs it)."""
+    import importlib.util
+
+    from deepim_tpu_torch import headline as hl
     from deepim_tpu_torch.cli import test as cli_test
     from deepim_tpu_torch.cli.train import load_assets_and_names
     from deepim_tpu_torch.config import update_config
@@ -119,7 +161,8 @@ def run(dev: torch.device, card: str, frames: int, passes: int, reps: int,
         k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
         kw = {"num_iters": cfg.test.test_iter, "out_size": (cfg.network.input_height,
                                                             cfg.network.input_width)}
-        log("setup", card=repr(card), torch=torch.__version__, records=len(recs), batch=bs,
+        log("setup", tree=tree, card=repr(card), torch=torch.__version__, records=len(recs),
+            batch=bs,
             batches=batches, size=f"{size[0]}x{size[1]}", iters=kw["num_iters"])
 
         def stream(threads=4, pin=pin, prefetch=True):
@@ -155,15 +198,108 @@ def run(dev: torch.device, card: str, frames: int, passes: int, reps: int,
                 ms_per_batch=best_ms_per_batch(lambda: refine(stream()), batches, reps))
         finally:
             sys.setswitchinterval(interval)
+        refine(stream())  # warm the profiler's first pass
+        busy, wall = device_busy_share(lambda: refine(stream()))
+        log("idle", threads=4, prefetch=True, device_busy_ms=busy, wall_ms=wall,
+            idle_share=1 - busy / wall, card=repr(card))
 
         frame = Path(ds._obs(recs[0].scene, recs[0].frame, "color.png")).read_bytes()
         blob = zlib.compress(np.random.RandomState(0).randint(0, 256, 921600, np.uint8).tobytes())
-        for tag, target in (("decode_png", lambda: png.decode_png(frame)),
-                            ("zlib_decompress", lambda: zlib.decompress(blob))):
+        targets = [("decode_png", lambda: png.decode_png(frame))]
+        if importlib.util.find_spec("deepim_tpu_torch.native") is not None:
+            from deepim_tpu_torch import native
+
+            targets.append(("native_decode_png", lambda: native.decode_png(frame)))
+        targets.append(("zlib_decompress", lambda: zlib.decompress(blob)))
+        for tag, target in targets:
             with spinning(target):
                 ms = best_ms_per_batch(lambda: refine(pinned), batches, reps)
             log("contention", spinning_threads=4, target=tag, refine_ms_per_batch=ms,
                 card=repr(card))
+        disk_entry_points(dev, card, cfg_path, tmp, ds, k_np, size)
+
+
+TRAIN_STEPS = 20  # cli.train steps on disk, as chip_smoke.py phase 15 takes
+
+
+def disk_entry_points(dev, card: str, cfg_path: str, root: str, ds, k_np, size,
+                      train_steps: int = TRAIN_STEPS) -> None:
+    """``[disk_test]`` and ``[disk_train]`` on the generated ``root``."""
+    import io
+    import re
+    import statistics
+
+    import yaml
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.cli import train as cli_train
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.data import toolkit
+    from deepim_tpu_torch.raster.mesh import PROCEDURAL_MESHES
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+    from deepim_tpu_torch.train import train as train_mod
+
+    spec = yaml.safe_load(Path(cfg_path).read_text())
+    spec["output_dir"] = f"{root}/out"
+    spec["dataset"]["root"] = root
+    spec["train"].update(num_steps=train_steps, log_every=1, warmup_steps=0,
+                         checkpoint_every=10 ** 6, syn_fraction=0.5)
+    path = f"{root}/experiment.yaml"
+    Path(path).write_text(yaml.safe_dump(spec))
+    cfg = update_config(path)
+    objects = list(cfg.dataset.objects)
+    toolkit.gen_rendered(ds, {o: PROCEDURAL_MESHES[o]() for o in objects}, k_np, size,
+                         device=dev)
+    save_checkpoint(checkpoint_dir(cfg), hl.SEED, hl.random_model(len(objects)).state_dict())
+
+    def quiet(main_fn, argv) -> str:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            if main_fn(argv):
+                raise RuntimeError(f"{argv} failed:\n{out.getvalue()[-2000:]}")
+        return out.getvalue()
+
+    argv = ["--cfg", path, "--device", str(dev)]
+    quiet(cli_test.main, argv)  # warm
+    rates = [float(re.search(r"\(([\d.]+) poses/s", quiet(cli_test.main, argv)).group(1))
+             for _ in range(2)]
+    log("disk_test", records=len([r for o in objects for r in ds.gt_roidb(o, "test")]),
+        batch=cfg.test.batch_size, poses_per_s=max(rates), runs=rates, card=repr(card))
+
+    step_ms = {"disk": [], "synthetic": []}
+    batchers = []
+
+    def timed(kind, make):
+        def wrapped(*a, **kw):
+            fn = make(*a, **kw)
+            if kind == "disk":
+                batchers.append(fn.batcher)
+
+            def step(state, g):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                out = fn(state, g)
+                torch.cuda.synchronize(dev)
+                step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+                return out
+            step.batcher = getattr(fn, "batcher", None)
+            return step
+        return wrapped
+
+    make_disk, make_syn = cli_train.make_disk_step, train_mod.make_synthetic_train_step
+    cli_train.make_disk_step = timed("disk", make_disk)
+    train_mod.make_synthetic_train_step = timed("synthetic", make_syn)
+    try:
+        quiet(cli_train.main, argv)
+    finally:
+        cli_train.make_disk_step, train_mod.make_synthetic_train_step = make_disk, make_syn
+    n_disk = len(step_ms["disk"])
+    log("disk_train", steps=train_steps, batch=cfg.train.batch_size, disk_steps=n_disk,
+        disk_step_ms=statistics.median(step_ms["disk"][1:]),
+        synthetic_step_ms=statistics.median(step_ms["synthetic"][1:]),
+        loader_wait_ms_per_disk_step=batchers[0].wait_s * 1e3 / max(n_disk, 1),
+        card=repr(card))
 
 
 if __name__ == "__main__":

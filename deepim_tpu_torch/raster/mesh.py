@@ -16,11 +16,15 @@ Python paths: ``load_ply`` with the writer ``save_ply``, ``load_obj``
 their texture images read through :mod:`deepim_tpu_torch.data.png`.
 
 A copy and not an import: ``deepim_tpu/raster/__init__.py`` imports jax.
-The reference routes meshes of 20,000+ faces to a C++ helper for vertex
-normals and decimation, and parses PLY and single-material OBJ files
-with it; this copy always runs the Python path, which is that helper's
-oracle.  ``tests/test_torch_assets.py`` holds the copy
-bit-identical to the reference.
+Routed as the reference routes them: meshes of ``_NATIVE_MIN_FACES``
+(20,000) faces and more get their vertex normals, and untextured ones their
+decimation, from the port's C++ host runtime (:mod:`deepim_tpu_torch.native`),
+which also parses untextured PLY and single-material OBJ files.  Below the
+threshold, and for what the C++ refuses, the numpy and Python paths run;
+``plain=True`` (``compute_vertex_normals``, ``make_mesh``,
+``decimate_mesh`` and the loaders) takes them at every size, as the plain
+versions the C++ is held to.  ``tests/test_torch_assets.py`` holds
+the copy bit-identical to the reference on its default route.
 """
 
 from __future__ import annotations
@@ -29,6 +33,9 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from deepim_tpu_torch import native
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -91,8 +98,20 @@ class Mesh:
 
 
 
-def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
-    """Area-weighted vertex normals (load-time only)."""
+# Face count from which load-time mesh ops route to the C++ host runtime
+# (numpy's unbuffered np.add.at is slow on 100k+-face scans).  Below it,
+# numpy keeps the procedural meshes' numerics byte-stable, as in the
+# reference (``deepim_tpu/raster/mesh.py §_NATIVE_MIN_FACES``).
+_NATIVE_MIN_FACES = 20_000
+
+
+def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray,
+                           plain: bool = False) -> np.ndarray:
+    """Area-weighted vertex normals (load-time only): C++
+    (``csrc/deepim_native.cpp §dn_vertex_normals``) from
+    ``_NATIVE_MIN_FACES`` faces up unless ``plain``, else numpy."""
+    if len(faces) >= _NATIVE_MIN_FACES and not plain:
+        return native.vertex_normals(vertices, faces)
     v0, v1, v2 = (vertices[faces[:, i]] for i in range(3))
     fn = np.cross(v1 - v0, v2 - v0)  # area-weighted face normals
     normals = np.zeros_like(vertices)
@@ -102,14 +121,15 @@ def compute_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarra
     return (normals / np.maximum(norm, 1e-12)).astype(np.float32)
 
 
-def make_mesh(vertices, faces, colors=None, uv=None, texture=None) -> Mesh:
+def make_mesh(vertices, faces, colors=None, uv=None, texture=None,
+              plain: bool = False) -> Mesh:
     vertices = np.asarray(vertices, np.float32)
     faces = np.asarray(faces, np.int32)
     if colors is None:
         colors = np.full_like(vertices, 0.7)
     colors = np.asarray(colors, np.float32)
     return Mesh(vertices, faces, colors,
-                compute_vertex_normals(vertices, faces),
+                compute_vertex_normals(vertices, faces, plain),
                 uv=None if uv is None else np.asarray(uv, np.float32),
                 texture=texture)
 
@@ -287,17 +307,24 @@ def pad_mesh(mesh: Mesh, num_vertices: int, num_faces: int) -> Mesh:
                 texture=mesh.texture)
 
 
-def decimate_mesh(mesh: Mesh, max_faces: int, seed: int = 0) -> Mesh:
+def decimate_mesh(mesh: Mesh, max_faces: int, seed: int = 0, plain: bool = False) -> Mesh:
     """Cheap vertex-clustering decimation to bound raster cost.
 
     Quantizes vertices onto a uniform grid (binary-searched resolution),
     merges vertices per cell, drops degenerate faces.  Not feature-
     preserving like quadric decimation, but adequate for render-and-compare
     at 1-2 px triangle scale (the CNN compares crops, not silhouette
-    microstructure).
+    microstructure).  Untextured meshes of ``_NATIVE_MIN_FACES`` faces and
+    more decimate in C++ (``§dn_decimate``, the same clustering; its vertices
+    come in the order the cells are first met), unless ``plain``.
     """
     if mesh.num_faces <= max_faces:
         return mesh
+    if mesh.num_faces >= _NATIVE_MIN_FACES and mesh.uv is None and not plain:
+        out = native.decimate(mesh.vertices, mesh.colors, mesh.faces, max_faces)
+        if out is not None:
+            v, c, f = out
+            return make_mesh(v, f, c)
     lo, hi = 4, 512  # grid resolutions to search
     best = None
     vmin = mesh.vertices.min(0)
@@ -333,7 +360,7 @@ def decimate_mesh(mesh: Mesh, max_faces: int, seed: int = 0) -> Mesh:
         nf = nf[np.sort(uidx)]
         if nf.shape[0] <= max_faces:
             best = make_mesh(new_v, nf.astype(np.int32), new_c,
-                             uv=new_uv, texture=mesh.texture)
+                             uv=new_uv, texture=mesh.texture, plain=plain)
             lo = res + 1  # try finer
         else:
             hi = res - 1
@@ -342,7 +369,7 @@ def decimate_mesh(mesh: Mesh, max_faces: int, seed: int = 0) -> Mesh:
             mesh.num_faces, max_faces, replace=False
         )
         best = make_mesh(mesh.vertices, mesh.faces[np.sort(keep)],
-                         mesh.colors, uv=mesh.uv, texture=mesh.texture)
+                         mesh.colors, uv=mesh.uv, texture=mesh.texture, plain=plain)
     return best
 
 
@@ -876,8 +903,8 @@ def random_mesh_zoo(n: int, seed: int = 0,
 
 # ---------------------------------------------------------------------------
 # PLY IO (``deepim_tpu/raster/mesh.py §_sniff_texture, §load_ply, §save_ply``).
-# The reference parses with its native C++ helper where it is built; this
-# is its Python path, the helper's oracle.
+# An untextured file is parsed by the C++ host runtime, as in the reference;
+# the Python parser below reads the rest and is the C++'s plain version.
 # ---------------------------------------------------------------------------
 
 _PLY_TYPES = {
@@ -939,15 +966,22 @@ def _read_ply_elements(f, fmt: str, elements) -> dict:
     return data
 
 
-def load_ply(path: str) -> Mesh:
+def load_ply(path: str, plain: bool = False) -> Mesh:
     """PLY reader: xyz (+ rgb) and faces, ascii or binary little endian.
 
     Covers the LM6d ``models/<obj>/textured.ply`` vertex-coloured meshes;
     polygons are fan-triangulated.  A textured PLY (per-vertex UVs and a
     ``comment TextureFile`` naming a PNG) bakes its texture to the vertex
-    colours and keeps uv and texture on the mesh.
+    colours and keeps uv and texture on the mesh.  An untextured file is
+    parsed in C++ (``csrc/deepim_native.cpp §dn_load_ply``) unless ``plain``;
+    what the C++ refuses comes here, to the Python parser.
     """
     textured = _sniff_texture(path)
+    if textured is None and not plain:
+        out = native.load_ply(path)
+        if out is not None:
+            v, c, f = out
+            return make_mesh(v, f, c)
     with open(path, "rb") as f:
         header = []
         while True:
@@ -1005,7 +1039,7 @@ def load_ply(path: str) -> Mesh:
         for k in range(1, len(idx) - 1):
             tris.append((idx[0], idx[k], idx[k + 1]))
     faces = np.asarray(tris, np.int32).reshape(-1, 3)
-    m = make_mesh(vertices, faces, colors)
+    m = make_mesh(vertices, faces, colors, plain=plain)
     if uv is not None:
         m = Mesh(m.vertices, m.faces, m.colors, m.normals, uv=uv.astype(np.float32),
                  texture=texture)
@@ -1031,9 +1065,9 @@ def save_ply(path: str, mesh: Mesh) -> None:
 # ---------------------------------------------------------------------------
 # OBJ (+ MTL and texture) and OFF IO (``deepim_tpu/raster/mesh.py
 # §_parse_mtl, §load_obj, §load_off, §normalize_mesh, §load_mesh``): YCB
-# ships textured.obj beside textured.ply, ModelNet .off CAD files.  The
-# reference parses single-material OBJs with its native C++ helper where
-# it is built; this is its Python path, the helper's oracle.
+# ships textured.obj beside textured.ply, ModelNet .off CAD files.  A
+# single-material OBJ is parsed by the C++ host runtime, as in the
+# reference; the Python parser reads the rest and is the C++'s plain version.
 # ---------------------------------------------------------------------------
 
 
@@ -1069,7 +1103,36 @@ def _parse_mtl(path: str) -> dict[str, dict]:
     return mats
 
 
-def load_obj(path: str) -> Mesh:
+def _load_obj_native(path: str) -> Mesh | None:
+    """``load_obj``'s C++ route (``deepim_tpu/raster/mesh.py §load_obj``'s
+    native branch): the geometry from ``csrc/deepim_native.cpp
+    §dn_load_obj``, the materials here -> the mesh, or None for a file the
+    C++ refuses or one with several materials."""
+    out = native.load_obj(path)
+    if out is None or out[5] > 1:
+        return None
+    nv, nc, nuv, nfaces, mtllib, _ = out
+    mtl: dict[str, dict] = {}
+    if mtllib:
+        mpath = os.path.join(os.path.dirname(path), mtllib)
+        if os.path.exists(mpath):
+            mtl = _parse_mtl(mpath)
+    if nc.max() > 1.5:  # 0-255-valued vertex colors
+        nc = nc / 255.0
+    tex_path = next((m["map_kd"] for m in mtl.values() if m.get("map_kd")), None)
+    if tex_path is not None and nuv is not None:
+        img = _read_rgb(tex_path)
+        mesh = make_mesh(nv, nfaces, bake_texture_to_vertices(nuv, img))
+        return Mesh(mesh.vertices, mesh.faces, mesh.colors, mesh.normals, uv=nuv,
+                    texture=img[..., :3].astype(np.float32) / 255.0)
+    if mtl and np.allclose(nc, 0.7, atol=1e-6):
+        # no vertex colors, no texture -> the flat material Kd
+        kd = next(iter(mtl.values()))["kd"]
+        nc = np.tile(np.asarray(kd, np.float32)[None], (len(nv), 1))
+    return make_mesh(nv, nfaces, nc)
+
+
+def load_obj(path: str, plain: bool = False) -> Mesh:
     """Wavefront .obj: v/vt/f, with MTL diffuse colours and texture maps.
 
     Faces are fan-triangulated; (vertex, uv) corner pairs are deduplicated
@@ -1077,8 +1140,14 @@ def load_obj(path: str) -> Mesh:
     ``v x y z r g b`` extension, else the texture baked to the vertices,
     else each material's Kd, else grey 0.7.  The uv and texture arrays stay
     on the mesh when exactly one texture map is used.  Negative (relative)
-    indices are honoured.
+    indices are honoured.  A file of at most one material is parsed in C++
+    (:func:`_load_obj_native`) unless ``plain``; a multi-material one, or
+    one the C++ refuses, by the Python parser below.
     """
+    if not plain:
+        mesh = _load_obj_native(path)
+        if mesh is not None:
+            return mesh
     positions: list[list[float]] = []
     vcolors: list[list[float]] = []
     uvs: list[list[float]] = []
@@ -1181,17 +1250,18 @@ def load_obj(path: str) -> Mesh:
                         if any(mm == name for mm in tri_mat) else np.arange(0))
             colors[verts_of] = m["kd"]
 
-    mesh = make_mesh(vertices, faces, colors)
+    mesh = make_mesh(vertices, faces, colors, plain=plain)
     if texture is not None:
         mesh = Mesh(mesh.vertices, mesh.faces, mesh.colors, mesh.normals, uv=uv_final,
                     texture=texture)
     return mesh
 
 
-def load_off(path: str) -> Mesh:
+def load_off(path: str, plain: bool = False) -> Mesh:
     """OFF/COFF (ModelNet CAD files): counts glued to the magic
     (``OFF490 430 980``), vertex colours (COFF) and per-face trailing
-    colours (scattered onto the face's vertices); faces fan-triangulated."""
+    colours (scattered onto the face's vertices); faces fan-triangulated.
+    Parsed in Python; ``plain`` reaches the vertex normals."""
     with open(path, errors="replace") as f:
         lines: list[list[str]] = []
         magic = None
@@ -1238,7 +1308,8 @@ def load_off(path: str) -> Mesh:
         for k in range(1, cnt - 1):
             tris.append((idx[0], idx[k], idx[k + 1]))
     faces = np.asarray(tris, np.int32).reshape(-1, 3)
-    return make_mesh(vertices, faces, colors if colors is not None else face_color)
+    return make_mesh(vertices, faces, colors if colors is not None else face_color,
+                     plain=plain)
 
 
 def normalize_mesh(mesh: Mesh, diameter: float = 0.15) -> Mesh:
@@ -1251,10 +1322,11 @@ def normalize_mesh(mesh: Mesh, diameter: float = 0.15) -> Mesh:
                 uv=mesh.uv, texture=mesh.texture)
 
 
-def load_mesh(path: str) -> Mesh:
-    """The loader of ``path``'s suffix: .ply, .obj (+ MTL) or .off."""
+def load_mesh(path: str, plain: bool = False) -> Mesh:
+    """The loader of ``path``'s suffix: .ply, .obj (+ MTL) or .off, given
+    ``plain``."""
     ext = os.path.splitext(path)[1].lower()
     loader = {".ply": load_ply, ".obj": load_obj, ".off": load_off}.get(ext)
     if loader is None:
         raise ValueError(f"unsupported mesh format {ext!r}: {path}")
-    return loader(path)
+    return loader(path, plain=plain)

@@ -212,17 +212,14 @@ def test_polygon_helpers_bit_identical():
 
 
 def test_procedural_meshes_bit_identical():
-    # From 20,000 faces the reference computes vertex normals in its C++
-    # helper, whose sums round differently from the numpy path the copy
-    # always runs: those normals agree to two float32 ulps of a unit vector.
+    # From 20,000 faces both packages compute vertex normals in C++ (each
+    # its own build of the same source): those normals are bit-identical too.
     assert list(mesh_t.PROCEDURAL_MESHES) == list(mesh_j.PROCEDURAL_MESHES)
+    assert mesh_t._NATIVE_MIN_FACES == mesh_j._NATIVE_MIN_FACES
     native = 0
     for name, make in mesh_t.PROCEDURAL_MESHES.items():
         mt, mj = make(), mesh_j.PROCEDURAL_MESHES[name]()
-        if mj.num_faces >= mesh_j._NATIVE_MIN_FACES:
-            native += 1
-            np.testing.assert_allclose(mt.normals, mj.normals, rtol=0, atol=2.0**-22)
-            mt = mesh_t.Mesh(mt.vertices, mt.faces, mt.colors, mj.normals)
+        native += mj.num_faces >= mesh_j._NATIVE_MIN_FACES
         _same_mesh(mt, mj)
     assert native == 2  # the two subdivision-5 icospheres
 
@@ -275,19 +272,17 @@ def test_load_assets_and_names_match(yaml_name, eval_set):
     {"dataset": {"name": "ycb", "objects": ["bowl"]}},
     {"dataset": {"name": "modelnet", "cad_dir": "meshes", "eval_objects": ["torus"]}},
 ])
-def test_load_assets_from_disk_is_not_ported(overrides, tmp_path, monkeypatch):
+def test_load_assets_from_disk_is_not_ported(overrides, tmp_path):
     """Meshes read from disk (once not ported, now the loaders' path):
     ``models/ape/textured.ply``, ``models/bowl/textured.obj`` with an MTL
     colour, a ModelNet ``cad_dir`` of an .off and an .obj file (normalised,
-    decimated), each loaded by both packages into equal assets, the
-    reference on its Python parsers."""
-    from deepim_tpu import native
+    decimated), each loaded by both packages into equal assets, each on its
+    default route (PLY and OBJ parsed in C++)."""
     from deepim_tpu.cli.train import load_assets_and_names as load_j
     from deepim_tpu.config import config_from_dict as config_j
     from deepim_tpu_torch.cli.train import load_assets_and_names as load_t
     from deepim_tpu_torch.config import config_from_dict
 
-    monkeypatch.setattr(native, "available", lambda: False)
     root = tmp_path / "root"
     (root / "models" / "ape").mkdir(parents=True)
     mesh_t.save_ply(str(root / "models" / "ape" / "textured.ply"),

@@ -31,7 +31,6 @@ import pytest
 import torch
 import yaml
 
-from deepim_tpu import native
 from deepim_tpu.cli import test as cli_test_j
 from deepim_tpu.cli import train as cli_train_j
 from deepim_tpu.config import config_from_dict as config_j
@@ -176,8 +175,7 @@ def _assert_runs_agree(spec, got, want, n_records):
     return allowed
 
 
-def test_cli_test_on_disk_matches_reference(tmp_path, lm6d_root, monkeypatch):
-    monkeypatch.setattr(native, "available", lambda: False)  # the reference's Python PLY path
+def test_cli_test_on_disk_matches_reference(tmp_path, lm6d_root):
     spec = _spec(tmp_path, lm6d_root)
     got, want = _run_both(tmp_path, spec, [])
     records = [r for o in OBJECTS for r in lm6d_j.LM6DDataset(lm6d_root, OBJECTS).gt_roidb(
@@ -219,9 +217,8 @@ def ycb_root(tmp_path_factory):
     return root
 
 
-def test_cli_test_ycb_keyframes_with_posecnn_mat(tmp_path, ycb_root, monkeypatch, capsys):
+def test_cli_test_ycb_keyframes_with_posecnn_mat(tmp_path, ycb_root, capsys):
     scipy_io = pytest.importorskip("scipy.io")
-    monkeypatch.setattr(native, "available", lambda: False)
     vds = video_j.VideoDataset(ycb_root, OBJECTS)
     recs = video_j.keyframe_records(vds)
     mats = tmp_path / "posecnn"

@@ -1,13 +1,12 @@
 """deepim_tpu_torch.raster.mesh's OBJ/OFF loaders against deepim_tpu's (CPU).
 
 Every case of tests/test_mesh_formats.py, each file read by both packages:
-geometry, colours, UVs and baked textures must be bit-identical.  The
-reference parses single-material OBJ files with its native C++ helper
-when it is built; the port follows its Python path, so each case compares
-with the helper switched off (``native.available`` patched to False) and,
-where tests/test_native.py shows the helper equal to that path (faces
-exactly, vertex positions within 1e-6 of single-material files), with it
-on as well, to that test's tolerance.
+geometry, colours, UVs and baked textures must be bit-identical.  Both
+packages parse untextured PLY and single-material OBJ files in C++ (each
+its own build of one source), so each case compares the two default routes,
+and then the two Python paths: the reference's helper switched off
+(``native.available`` patched to False) against the port's loader with
+``plain=True``, the route a file takes that the C++ does not parse.
 """
 
 import os
@@ -35,17 +34,14 @@ def _same(a, b, fields=FIELDS):
             np.testing.assert_array_equal(x, y, err_msg=f)
 
 
-def _both(path, loader="load_mesh", monkeypatch=None, native_too=False):
-    """The port's mesh of ``path`` and the reference's, read on its Python
-    path (and, with ``native_too``, its native one: geometry must agree)."""
+def _both(path, loader="load_mesh", monkeypatch=None):
+    """The port's mesh of ``path`` against the reference's on their default
+    routes, then on their Python paths -> the port's default mesh."""
     got = getattr(mesh_t, loader)(path)
-    monkeypatch.setattr(native, "available", lambda: False)
     _same(got, getattr(mesh_j, loader)(path))
+    monkeypatch.setattr(native, "available", lambda: False)
+    _same(getattr(mesh_t, loader)(path, plain=True), getattr(mesh_j, loader)(path))
     monkeypatch.undo()
-    if native_too and native.available():
-        want = getattr(mesh_j, loader)(path)
-        np.testing.assert_array_equal(got.faces, want.faces)
-        np.testing.assert_allclose(got.vertices, want.vertices, rtol=0, atol=1e-6)
     return got
 
 
@@ -66,21 +62,21 @@ def _textured_obj(tmp_path):
 def test_obj_geometry_and_colours(tmp_path, monkeypatch, case):
     text = {"basic": _obj_text(), "vertex_colors": _obj_text(with_colors=True),
             "negative_indices": "v 0 0 0\nv 1 0 0\nv 0 1 0\nf -3 -2 -1\n"}[case]
-    m = _both(_write(tmp_path / "a.obj", text), "load_obj", monkeypatch, native_too=True)
+    m = _both(_write(tmp_path / "a.obj", text), "load_obj", monkeypatch)
     assert m.num_faces == {"negative_indices": 1}.get(case, 12)
     if case == "vertex_colors":
         assert m.colors[m.vertices[:, 0] > 0, 0].mean() > m.colors[m.vertices[:, 0] < 0, 0].mean()
 
 
 def test_obj_mtl_and_texture_bake(tmp_path, monkeypatch):
-    m = _both(_textured_obj(tmp_path), "load_obj", monkeypatch, native_too=True)
+    m = _both(_textured_obj(tmp_path), "load_obj", monkeypatch)
     assert m.uv is not None and m.texture is not None and m.texture.shape == (8, 8, 3)
     left, right = m.colors[np.isclose(m.uv[:, 0], 0.05)], m.colors[np.isclose(m.uv[:, 0], 0.95)]
     assert left.max() < 0.2 and right.min() > 0.8
     # A Kd-only material: a flat diffuse colour.
     _write(tmp_path / "kd.mtl", "newmtl flat\nKd 0.9 0.1 0.3\n")
     m2 = _both(_write(tmp_path / "kd.obj", "mtllib kd.mtl\nv 0 0 0\nv 0.1 0 0\nv 0 0.1 0\n"
-                      "usemtl flat\nf 1 2 3\n"), "load_obj", monkeypatch, native_too=True)
+                      "usemtl flat\nf 1 2 3\n"), "load_obj", monkeypatch)
     np.testing.assert_allclose(m2.colors[0], [0.9, 0.1, 0.3], atol=1e-6)
 
 
@@ -100,7 +96,7 @@ def test_obj_two_materials_and_grey_map(tmp_path, monkeypatch):
 def test_obj_uv_corner_dedup(tmp_path, monkeypatch):
     obj = ("v 0 0 0\nv 0.1 0 0\nv 0 0.1 0\nvt 0 0\nvt 1 0\nvt 0 1\nvt 1 1\n"
            "f 1/1 2/2 3/3\nf 1/4 2/2 3/3\n")
-    m = _both(_write(tmp_path / "seam.obj", obj), "load_obj", monkeypatch, native_too=True)
+    m = _both(_write(tmp_path / "seam.obj", obj), "load_obj", monkeypatch)
     assert (m.num_vertices, m.num_faces) == (4, 2)
 
 
@@ -158,7 +154,7 @@ def test_load_mesh_dispatch_unknown(tmp_path):
         mesh_t.load_mesh(str(tmp_path / "x.stl"))
 
 
-def test_lm6d_model_path_probes_obj(tmp_path, monkeypatch):
+def test_lm6d_model_path_probes_obj(tmp_path):
     """LM6DDataset finds textured.obj where no .ply exists (the YCB layout)
     and loads the same mesh as the reference."""
     os.makedirs(tmp_path / "models" / "thing")
@@ -168,7 +164,6 @@ def test_lm6d_model_path_probes_obj(tmp_path, monkeypatch):
     assert ds.model_path("thing") == lm6d_j.LM6DDataset(str(tmp_path), ["thing"]).model_path(
         "thing")
     (got,) = ds.load_meshes()
-    monkeypatch.setattr(native, "available", lambda: False)
     (want,) = lm6d_j.LM6DDataset(str(tmp_path), ["thing"]).load_meshes()
     _same(got, want)
     assert got.num_faces == 12

@@ -9,7 +9,9 @@ on-disk LM6d root (the toolkit, the C++ PNG unfilter,
 the streamed batches, ``TrainBatcher``, an OBJ model), and convert public
 releases (a BOP JSON release, an original LINEMOD one with JPEG frames,
 ``cli.runbook --dry-run``: detect, convert, validate, write the eval
-config) with jax, optax,
+config), and run the C++ host runtime (a 20,480-face PLY loaded and
+decimated, ``decode_png``, ``PrefetchReader``) and ``tools.seed_variance``
+with jax, optax,
 orbax, PyYAML and PIL blocked; no source file of the port may import jax,
 flax, orbax, PIL or the reference, none may import yaml when it is
 imported, and none names the reference's native library.
@@ -170,6 +172,28 @@ for m in ("models.quant", "data.jpeg", "data.bop", "data.lm_original", "data.val
           "cli.runbook",
           "cli.convert_dataset", "cli.validate_dataset", "train.convert_mxnet",
           "utils.profiling", "utils.logging"):
+    assert "deepim_tpu_torch." + m in mods, m
+from deepim_tpu_torch import native
+from deepim_tpu_torch.raster.mesh import decimate_mesh, load_ply, save_ply
+from deepim_tpu_torch.tools import seed_variance
+with tempfile.TemporaryDirectory() as d:
+    save_ply(d + "/dense.ply", icosphere_mesh(0.05, subdivisions=5))
+    dense = load_ply(d + "/dense.ply")
+    assert dense.num_faces == 20480
+    assert decimate_mesh(dense, 4096).num_faces <= 4096
+    img = (np.random.rand(6, 5, 3) * 255).astype(np.uint8)
+    write_png(d + "/p.png", img)
+    assert (native.decode_png(open(d + "/p.png", "rb").read()) == img).all()
+    got = list(native.PrefetchReader([d + "/p.png", d + "/missing.png"], num_threads=2))
+    assert got == [(0, open(d + "/p.png", "rb").read()), (1, None)]
+    for i in range(2):
+        os.makedirs(f"{d}/run{i}")
+        with open(f"{d}/run{i}/eval_results.json", "w") as f:
+            f.write('{"mean": {"add(-s)_0.1d": %d, "5deg_5cm": 1, "proj2d_5px": 2, '
+                    '"auc_add(-s)": 3}, "num_samples": 8}' % (10 * i))
+    assert seed_variance.main([f"{d}/run0", f"{d}/run1"]) == 0
+for m in ("native", "tools.seed_variance", "tools.decimation_ab", "tools.robustness_curve",
+          "tools.supervise_train"):
     assert "deepim_tpu_torch." + m in mods, m
 try:
     from deepim_tpu_torch.config import update_config
