@@ -57,7 +57,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
 8. The top-k route through ``render_batch``, ``render_batch_tri`` and
    ``render_batch_textured`` (``binning="topk"``, B=128, 480x640): each
    launches the top-k kernel and warns as the reference does.
-9. Card against CPU, float32: ``render_scene`` at B=4 with each synthesis
+9. Card against CPU, float32: ``render_scene`` at B=2 with each synthesis
    run's assets and slot count, the chunked one z-merging two cols chunks
    (raster tolerance), ``refine_poses`` on the textured headline assets at
    B=4 (atol 1e-3).
@@ -156,7 +156,7 @@ Phases, one line each (any failure raises and the script exits nonzero):
    protocol with ``--posecnn-mat`` on ``gen_video``'s data (every record
    matched, one decode a keyframe a batch).
 16. Public releases at ``lm6d_all.yaml`` (480x640, test B=16, K=4, bf16): a
-   root generated on the card (16 frames an object) re-laid out by
+   root generated on the card (8 frames an object) re-laid out by
    ``tests/test_torch_release_fixtures.py`` as a BOP JSON release (mm,
    ``depth_scale`` 0.1, ``mask_visib``), a SIXD YAML one, an original
    LINEMOD one (baseline JPEG frames, ``.dpt`` in mm, ``.tra`` in cm, mm
@@ -213,6 +213,29 @@ Phases, one line each (any failure raises and the script exits nonzero):
    with their launches; ``tools.supervise_train`` on ``synthetic_small``
    with its trainer killed (SIGKILL) after the first checkpoint: it
    relaunches with ``--resume``, reaches the done line and exits 0.
+19. Ranks (``deepim_tpu_torch/parallel``, one process each, spawned;
+   rank r on cuda:(r % cards), NCCL when each rank has a card of its own,
+   gloo when ranks share one): at the flagship training config
+   (``headline.TRAIN_CONFIG``), a one-rank NCCL group takes NCCL_STEPS
+   fused steps through the ``mesh=`` path (the first step's loss and
+   gradient norm within rtol 1e-4 of the same step without a mesh, all
+   losses finite), while ``dryrun_multichip 2 --device cuda`` (three OK
+   lines, backend gloo) and the last four tools run beside it:
+   ``demo_render``'s images, ``plot_train`` on phase 12's
+   ``train_log.jsonl``, ``gen_lm6d_cfgs`` equal to
+   ``experiments/cfgs/lm6d/``, ``scale_eval_demo --frames 1024`` and its
+   peak RSS.  Then four gloo ranks on this card (one spawn): two of them
+   take DP_STEPS fused steps of 16 samples a rank (samples/s of two
+   processes time-slicing one card, the all-reduce's ms a step, peak MiB
+   and sorted launches a rank, 3 a step; the ranks' parameters bit for
+   bit equal after); then one float32 step at 480x640 and a global batch
+   of 8 (TF32 off) on a (2, 1) and a (1, 2) mesh of two ranks and a
+   (2, 2) mesh of all four, each against one process's step on the whole
+   batch (gradients within 1e-3 of each leaf's max abs, loss rtol 1e-5;
+   fc1's shard half the weight).  Last, ``cli.test`` at synthetic_all_c2f
+   (256 samples, --save-poses) under ``torch.distributed.run`` on two
+   ranks against one process (poses within 1e-3, 5 sorted launches a
+   batch a rank, both tables).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on the main paths, its time, plain time and bound at 480x640,
@@ -239,7 +262,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PARITY_B = 4  # card-against-CPU refinement rows (8 until the script passed ~1,000 s)
-SCENE_PARITY_B = 4  # render_scene card against CPU (8 until the on-disk phase came)
+SCENE_PARITY_B = 2  # render_scene card against CPU (8 until the on-disk phase, 4 until phase 19)
 FLAGSHIP_PARITY_B = 4  # the service's flagship parity (8 until the training phase came)
 PARITY_ATOL = 1e-3  # the CPU trajectory test's tolerance
 RGB_ATOL, DEPTH_ATOL = 2e-2, 1e-3  # the repo's raster tolerance, printed beside
@@ -1166,6 +1189,7 @@ OVERFIT_STEPS = 80  # tests/test_train.py §test_micro_overfit
 SMALL_STEPS, SMALL_RESUME = 150, 200
 TRAINED_EVAL_N = 512  # cli.test on the checkpoint cli.train wrote
 TRAIN_PARITY_B = 2
+TRAIN_LOGS: dict[str, str] = {}  # phase 12's train_log.jsonl, by config
 TRAIN_RTOL, GRAD_FRAC, PARAM_ATOL = 1e-4, 1e-3, 1e-6
 # The card's float32 gradient against its float64 one at train_iter 1:
 # cuDNN's float32 backward missed by 2.78e-2 of a leaf's max (conv6_1) at
@@ -1387,6 +1411,7 @@ def phase_train_cli(dev, card):
         with contextlib.redirect_stdout(out):
             cli.main(args + ["--num-steps", str(SMALL_RESUME), "--resume"])
         log_path = Path(tmp) / spec["experiment"] / "train_log.jsonl"
+        TRAIN_LOGS["synthetic_small"] = log_path.read_text()  # phase 19 plots it
         recs = [json.loads(line) for line in log_path.read_text().splitlines()]
         ckpt = checkpoint_dir(config_from_dict(spec))
         resumed = f"resumed from step {SMALL_STEPS}" in out.getvalue()
@@ -2541,7 +2566,7 @@ def phase_disk(dev, card, rc, counts, work: str) -> dict:
             "idle_share": idle_share, "streamed_ms_per_batch": streamed}
 
 
-RELEASE_FRAMES = 16  # generated frames an object, re-laid out as each release
+RELEASE_FRAMES = 8  # generated frames an object, re-laid out as each release (16 until phase 19)
 RELEASE_DENSE_FRAMES = 4  # frames an object of the 20,480-face BOP release
 RELEASE_PARITY_B = 4  # rows of one converted-root batch refined on card and CPU
 RELEASE_JPEG_RESTART = 8  # MCUs a restart interval of the decoder's test frames
@@ -3640,7 +3665,7 @@ class Laps:
 
 
 def run_phases(dev, card: str) -> list[dict]:
-    """Phases 3-18 on ``dev``; returns the kernels' JSON record."""
+    """Phases 3-19 on ``dev``; returns the kernels' JSON record."""
     import tempfile
 
     from deepim_tpu_torch import headline as hl
@@ -3755,6 +3780,11 @@ def run_phases(dev, card: str) -> list[dict]:
         phase_native(dev, card, rc, counts, disk, work)
         laps("native")
 
+    # Ranks: NCCL at world 1, data and tensor parallelism on this card,
+    # the data-parallel eval under torchrun, the dry run, the last tools.
+    phase_parallel(dev, card, counts)
+    laps("parallel")
+
     kernels = []
     for kname, src, line, timed_case in (
             ("raster_cols", "raster_cols.cu", 418, "cols_route"),
@@ -3785,5 +3815,445 @@ def run_phases(dev, card: str) -> list[dict]:
     return kernels
 
 
+# -- Phase 19: ranks ------------------------------------------------------------
+
+NCCL_STEPS = 5  # fused steps of the one-rank NCCL group
+NCCL_RTOL = 1e-4  # its first step against the step without a mesh (cuDNN's noise)
+DP_STEPS = 10  # timed fused steps of the two gloo ranks on this card
+DP_PARITY_B = 8  # the global batch of the float32 DP and TP steps at 480x640
+DP_GRAD_FRAC, DP_LOSS_RTOL = 1e-3, 1e-5  # tests/test_torch_train.py's gradient tolerance
+DP_EVAL_N = 256  # cli.test samples, two ranks against one process
+DP_POSE_ATOL = 1e-3  # the service-against-direct gate
+SCALE_FRAMES = 1024  # tools.scale_eval_demo
+
+
+def _train_setup(dev, spec: dict):
+    """(cfg, assets, model on ``dev`` with the phases' seed, k_cam) of ``spec``."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli.train import load_assets_and_names
+    from deepim_tpu_torch.config import config_from_dict
+    from deepim_tpu_torch.raster.camera import make_intrinsics
+    from deepim_tpu_torch.train import make_model
+
+    cfg = config_from_dict(spec)
+    d = cfg.dataset
+    assets, _, _ = load_assets_and_names(cfg, device=dev)
+    model = make_model(cfg, assets.num_classes,
+                       generator=torch.Generator().manual_seed(hl.SEED)).to(dev)
+    return cfg, assets, model, make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for v in tensors:
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _whole_grads(model, mesh) -> dict:
+    """Every parameter's gradient, the tensor-parallel shards made whole
+    on each rank (placed in zeros, summed over the model axis)."""
+    import torch.distributed as dist
+
+    from deepim_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    n_model, m = mesh.shape[MODEL_AXIS], mesh.model_index
+    if n_model == 1:
+        return grads
+    for name, axis in (("fc1.weight", 0), ("fc1.bias", 0), ("fc2.weight", 1)):
+        shard = grads[name]
+        k = shard.shape[axis]
+        shape = list(shard.shape)
+        shape[axis] = k * n_model
+        full = torch.zeros(shape, dtype=shard.dtype, device=shard.device)
+        full.narrow(axis, m * k, k).copy_(shard)
+        dist.all_reduce(full, group=mesh.model_group)
+        grads[name] = full
+    return grads
+
+
+def _f32_spec() -> dict:
+    from deepim_tpu_torch import headline as hl
+
+    spec = copy.deepcopy(hl.TRAIN_CONFIG)
+    spec.setdefault("network", {})["dtype"] = "float32"
+    spec["train"].update(batch_size=DP_PARITY_B, warmup_steps=0)
+    return spec
+
+
+def _f32_case(dev):
+    """TF32 off; the float32 config, its assets, the seeded model on
+    ``dev`` and one whole batch drawn from a seed (the same on every
+    rank)."""
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.data import synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, assets, base, k_cam = _train_setup(dev, _f32_spec())
+    d = cfg.dataset
+    batch = synthetic_batch(torch.Generator(device=dev).manual_seed(hl.SEED), assets,
+                            DP_PARITY_B, k_cam, (d.image_height, d.image_width))
+    batch.pop("visible_frac", None)
+    return cfg, assets, base, batch
+
+
+def _one_step(cfg, assets, model, batch, mesh=None) -> tuple[dict, float]:
+    """One train step of ``model`` (this rank's rows of ``batch`` under
+    ``mesh``) -> (its whole gradients, its loss)."""
+    from deepim_tpu_torch.parallel import shard_batch
+    from deepim_tpu_torch.train import init_state, make_train_step
+
+    state = init_state(cfg, model)
+    rows = batch if mesh is None else shard_batch(mesh, batch)
+    _, metrics = make_train_step(model, assets, cfg, mesh=mesh)(state, rows)
+    grads = ({n: p.grad.detach().clone() for n, p in model.named_parameters()}
+             if mesh is None else _whole_grads(model, mesh))
+    return grads, float(metrics["loss"])
+
+
+def _against_single(grads: dict, loss: float, single: tuple[dict, float]) -> dict:
+    err, leaf = grad_err(grads, single[0])
+    return {"grad_err": err, "grad_err_leaf": leaf, "loss": loss, "single_loss": single[1],
+            "loss_rel": abs(loss - single[1]) / abs(single[1])}
+
+
+def rank_nccl(dev) -> dict:
+    """The one-rank NCCL group: NCCL_STEPS fused steps at TRAIN_CONFIG
+    through ``mesh=``, the first against the same step without a mesh."""
+    import torch.distributed as dist
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.parallel import make_mesh
+    from deepim_tpu_torch.raster import raster_cuda as rc
+    from deepim_tpu_torch.train import init_state, make_synthetic_train_step
+
+    cfg, assets, model, k_cam = _train_setup(dev, hl.TRAIN_CONFIG)
+    plain = copy.deepcopy(model)
+    mesh = make_mesh(1, 1)
+    s_mesh, s_plain = init_state(cfg, model), init_state(cfg, plain)
+    step = make_synthetic_train_step(model, assets, cfg, k_cam, mesh=mesh)
+    _, m0 = make_synthetic_train_step(plain, assets, cfg, k_cam)(
+        s_plain, torch.Generator(device=dev).manual_seed(hl.SEED))
+    del plain, s_plain
+    rc.reset_launches()
+    losses, norms = [], []
+    for i in range(NCCL_STEPS):
+        _, m = step(s_mesh, torch.Generator(device=dev).manual_seed(hl.SEED + i))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"backend": dist.get_backend(), "device": str(dev), "losses": losses,
+            "grad_norms": norms, "plain_loss": float(m0["loss"]),
+            "plain_grad_norm": float(m0["grad_norm"]), "launches": dict(rc.LAUNCHES)}
+
+
+def _timed_dp(dev, mesh) -> dict:
+    """DP_STEPS timed fused steps at TRAIN_CONFIG on the two-rank data
+    ``mesh`` (16 samples a rank), after two to warm up."""
+    import torch.distributed as dist
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.raster import raster_cuda as rc
+    from deepim_tpu_torch.train import init_state, make_synthetic_train_step
+    from deepim_tpu_torch.train import train as tt
+
+    cfg, assets, model, k_cam = _train_setup(dev, hl.TRAIN_CONFIG)
+    state = init_state(cfg, model)
+    step = make_synthetic_train_step(model, assets, cfg, k_cam, mesh=mesh)
+    reduce_s = []
+    real = tt.mean_gradients
+
+    def timed(m, msh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(m, msh)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    tt.mean_gradients = timed
+    g = torch.Generator(device=dev)
+    try:
+        for i in range(2):  # warm (cuDNN's choices, the allocator)
+            step(state, g.manual_seed(hl.SEED + i))
+        reduce_s.clear()
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        torch.cuda.reset_peak_memory_stats()
+        rc.reset_launches()
+        t0 = time.perf_counter()
+        for i in range(DP_STEPS):
+            _, metrics = step(state, g.manual_seed(hl.SEED + 100 + i))
+        torch.cuda.synchronize()
+        dist.barrier(group=mesh.group)
+        wall = time.perf_counter() - t0
+    finally:
+        tt.mean_gradients = real
+    out = {"wall_s": wall, "launches": dict(rc.LAUNCHES),
+           "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+           "reduce_ms": 1e3 * statistics.mean(reduce_s), "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]),
+           "digest": _digest(model.state_dict().values()),
+           "local_batch": cfg.train.batch_size // 2}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_four(dev) -> dict:
+    """Four gloo ranks on this card.  Ranks 0 and 1 take the timed DP steps
+    (:func:`_timed_dp`; ranks 2 and 3 wait); then the float32 step on a
+    (2, 1) and a (1, 2) mesh of ranks 0 and 1 and on a (2, 2) mesh of all
+    four, each against rank 0's one-process step on the whole batch."""
+    import torch.distributed as dist
+
+    from deepim_tpu_torch.parallel import make_mesh, shard_params_for_tp
+
+    rank = dist.get_rank()
+    mesh = make_mesh(n_data=2)
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    if mesh.member:
+        out["dp"] = _timed_dp(dev, mesh)
+    dist.barrier()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg32, assets32, base, batch = _f32_case(dev)
+    out["batch_digest"] = _digest(batch.values())
+    single = _one_step(cfg32, assets32, copy.deepcopy(base), batch) if rank == 0 else None
+    torch.cuda.empty_cache()
+    out["shard_fractions"] = []
+    for name, (n_data, n_model) in (("dp_2x1", (2, 1)), ("tp_1x2", (1, 2)),
+                                    ("tp_2x2", (2, 2))):
+        mesh = make_mesh(n_data, n_model)  # every rank makes the groups
+        if not mesh.member:
+            continue
+        model = copy.deepcopy(base)
+        if n_model > 1:
+            model = shard_params_for_tp(model, mesh)
+            out["shard_fractions"].append(model.fc1.weight.numel() / base.fc1.weight.numel())
+        grads, loss = _one_step(cfg32, assets32, model, batch, mesh)
+        if rank == 0:
+            out[name] = _against_single(grads, loss, single)
+        del grads, model
+    out["peak_mib_f32"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def cli_test_rank(out_prefix: str, argv: list[str]) -> int:
+    """One ``torch.distributed.run`` rank of ``cli.test`` (``chip_smoke.py
+    --cli-test-rank <prefix> <argv>``): its exit code and raster launches
+    go to ``<prefix>.rank<r>.json``."""
+    sys.path.insert(0, str(ROOT))
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.raster import raster_cuda as rc
+
+    rc.reset_launches()
+    code = cli_test.main(argv)
+    Path(f"{out_prefix}.rank{os.environ['RANK']}.json").write_text(
+        json.dumps({"code": code, "launches": dict(rc.LAUNCHES)}))
+    return code
+
+
+def _check_parity(name: str, r: dict) -> None:
+    if not (r["grad_err"] <= DP_GRAD_FRAC and r["loss_rel"] <= DP_LOSS_RTOL):
+        raise AssertionError(f"{name}: the step misses one process's: {r}")
+
+
+def phase_parallel(dev, card, counts):
+    """Phase 19 (see the module docstring)."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from deepim_tpu_torch import headline as hl
+    from deepim_tpu_torch.cli import test as cli_test
+    from deepim_tpu_torch.config import update_config
+    from deepim_tpu_torch.parallel import spawn
+    from deepim_tpu_torch.parallel.distributed import free_port
+    from deepim_tpu_torch.train import checkpoint_dir, save_checkpoint
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # 5. The dry run and 6. scale_eval_demo start now, beside the NCCL
+        # steps and the quick tools (none of them is timed).
+        side = {
+            "dry": subprocess.Popen(
+                [sys.executable, "-m", "deepim_tpu_torch.dryrun_multichip", "2", "--device",
+                 dev.type], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True),
+            "scale": subprocess.Popen(
+                [sys.executable, "-m", "deepim_tpu_torch.tools.scale_eval_demo", "--frames",
+                 str(SCALE_FRAMES), "--root", str(Path(tmp) / "scale_lm6d"), "--device",
+                 str(dev)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)}
+        try:
+            # 1. One rank, NCCL.
+            t0 = time.perf_counter()
+            (r,) = spawn(rank_nccl, 1, dev.type)
+            counts["nccl_world1_train"] = r["launches"]
+            first_rel = abs(r["losses"][0] - r["plain_loss"]) / abs(r["plain_loss"])
+            norm_rel = (abs(r["grad_norms"][0] - r["plain_grad_norm"])
+                        / abs(r["plain_grad_norm"]))
+            log("ranks_nccl", world=1, backend=r["backend"], device=r["device"],
+                steps=NCCL_STEPS, losses=r["losses"], grad_norms=r["grad_norms"],
+                first_loss_rel=first_rel, first_grad_norm_rel=norm_rel,
+                sorted_launches=r["launches"]["raster_sorted"],
+                seconds=time.perf_counter() - t0, card=repr(card))
+            if dev.type == "cuda" and r["backend"] != "nccl":
+                raise AssertionError(f"one rank on one card is not on NCCL: {r['backend']}")
+            if not (first_rel <= NCCL_RTOL and norm_rel <= NCCL_RTOL
+                    and all(math.isfinite(x) for x in r["losses"])):
+                raise AssertionError(f"the NCCL mesh step misses the step without a mesh: {r}")
+            phase_last_tools(dev, tmp)
+            done = {k: p.communicate(timeout=600) for k, p in side.items()}
+        finally:
+            for p in side.values():
+                p.kill()
+        stdout, stderr = done["dry"]
+        ok = [ln for ln in stdout.splitlines() if ": OK " in ln]
+        print("\n".join(ok), flush=True)
+        log("ranks_dryrun", rc=side["dry"].returncode, ok_lines=len(ok),
+            seconds_beside_nccl_and_tools=time.perf_counter() - t_phase)
+        if (side["dry"].returncode or len(ok) != 3
+                or not all(ln.endswith("backend=gloo") for ln in ok)):
+            raise AssertionError(f"dryrun_multichip failed:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+        stdout, stderr = done["scale"]
+        line = [ln for ln in stdout.splitlines() if ln.startswith("streamed eval")]
+        log("tool_scale_eval_demo", frames=SCALE_FRAMES, rc=side["scale"].returncode,
+            line=line[0] if line else None)
+        if side["scale"].returncode or not line:
+            raise AssertionError(f"scale_eval_demo failed:\n{stdout[-2000:]}\n{stderr[-2000:]}")
+
+        # 2. Two gloo ranks on this card, timed; 3. tensor parallelism, on
+        # four ranks (one spawn).
+        t0 = time.perf_counter()
+        four = spawn(rank_four, 4, dev.type)
+        two = [r["dp"] for r in four[:2]]
+        expect_sorted = 3 * DP_STEPS  # the observed frame and one crop an iteration, a step
+        for i, r in enumerate(two):
+            counts[f"dp_train_rank{i}"] = r["launches"]
+        lead = two[0]
+        log("ranks_dp", world=2, backend=four[0]["backend"],
+            devices=[r["device"] for r in four[:2]], config="synthetic_all",
+            size=f"{hl.SIZE[0]}x{hl.SIZE[1]}", samples_per_rank=lead["local_batch"],
+            steps=DP_STEPS, samples_per_s_two_processes_one_card=(
+                2 * lead["local_batch"] * DP_STEPS / max(r["wall_s"] for r in two)),
+            allreduce_ms_per_step=[r["reduce_ms"] for r in two],
+            peak_mib_per_rank=[r["peak_mib"] for r in two],
+            sorted_launches_per_rank=[r["launches"]["raster_sorted"] for r in two],
+            loss=lead["loss"], grad_norm=lead["grad_norm"],
+            params_equal=len({r["digest"] for r in two}) == 1,
+            note="two processes time-slice one card (two more idle): not a multi-GPU rate",
+            card=repr(card))
+        if any(r["backend"] != "gloo" for r in four):
+            raise AssertionError("ranks that share one card must be on gloo")
+        if any(r["launches"]["raster_sorted"] != expect_sorted or r["launches"]["raster_cols"]
+               for r in two):
+            raise AssertionError(f"a rank's renders missed the sorted kernel: "
+                                 f"{[r['launches'] for r in two]}")
+        if len({r["digest"] for r in two}) != 1:
+            raise AssertionError("the two ranks' parameters differ after the steps")
+        if len({r["batch_digest"] for r in four}) != 1:
+            raise AssertionError("the ranks drew different float32 batches from one seed")
+        for name in ("dp_2x1", "tp_1x2", "tp_2x2"):
+            r = four[0][name]
+            log("ranks_f32_step", mesh=name, batch=DP_PARITY_B,
+                size=f"{hl.SIZE[0]}x{hl.SIZE[1]}", tf32=False,
+                **r, tol=f"grad {DP_GRAD_FRAC} of leaf max, loss rtol {DP_LOSS_RTOL}")
+            _check_parity(name, r)
+        fractions = [f for r in four for f in r["shard_fractions"]]
+        if fractions != [0.5] * 6:  # ranks 0 and 1 on (1, 2), all four on (2, 2)
+            raise AssertionError(f"fc1's shard is not half the weight: {fractions}")
+        log("ranks_tp", shard_fraction=fractions[0],
+            peak_mib_f32_4_ranks=[r["peak_mib_f32"] for r in four],
+            seconds=time.perf_counter() - t0)
+
+        # 4. cli.test under torch.distributed.run against one process.
+        runs = {}
+        for tag in ("one", "two"):
+            os.makedirs(Path(tmp) / tag)
+            path = experiment_yaml(str(Path(tmp) / tag), "synthetic_all_c2f.yaml")
+            cfg = update_config(path)
+            save_checkpoint(checkpoint_dir(cfg), hl.SEED, hl.random_model(4).state_dict())
+            runs[tag] = (path, Path(tmp) / tag / cfg.experiment)
+        bs, k_iters = cfg.test.batch_size, cfg.test.test_iter
+        argv = ["--device", str(dev), "--num-samples", str(DP_EVAL_N), "--save-poses"]
+        text1, s1, launches1, _ = run_cli(cli_test.main, ["--cfg", runs["one"][0], *argv])
+        prefix = str(Path(tmp) / "launches")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+             "--master_port", str(free_port()), str(ROOT / "chip_smoke.py"), "--cli-test-rank",
+             prefix, "--cfg", runs["two"][0], *argv],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        s2 = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"torchrun cli.test exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        ranks = [json.loads(Path(f"{prefix}.rank{i}.json").read_text()) for i in range(2)]
+        for i, r in enumerate(ranks):
+            counts[f"dp_eval_rank{i}"] = r["launches"]
+        batches = DP_EVAL_N // bs
+        traj1 = np.load(runs["one"][1] / "refined_poses.npz")["traj"]
+        traj2 = np.load(runs["two"][1] / "refined_poses.npz")["traj"]
+        pose_err = float(np.abs(traj1 - traj2).max())
+        per_batch = [r["launches"]["raster_sorted"] / batches for r in ranks]
+        log("ranks_eval", config="synthetic_all_c2f", samples=DP_EVAL_N, batch=bs,
+            one_process_s=s1, two_ranks_s=s2,
+            one_process_poses_per_s=_number(r"\(([\d.]+) poses/s", text1),
+            two_ranks_poses_per_s=_number(r"\(([\d.]+) poses/s", proc.stdout),
+            sorted_per_batch_one=launches1["raster_sorted"] / batches,
+            sorted_per_batch_per_rank=per_batch, max_pose_diff=pose_err,
+            one_last_row=_row(text1, f"[iter {k_iters}]"),
+            two_last_row=_row(proc.stdout, f"[iter {k_iters}]"), card=repr(card))
+        print("\n".join(ln for ln in text1.splitlines() if "±" in ln or "MEAN" in ln), flush=True)
+        print("\n".join(ln for ln in proc.stdout.splitlines() if "±" in ln or "MEAN" in ln),
+              flush=True)
+        if traj1.shape != traj2.shape or not pose_err <= DP_POSE_ATOL:
+            raise AssertionError(f"two-rank cli.test misses one process: {pose_err}")
+        if per_batch != [1 + k_iters] * 2:
+            raise AssertionError(f"a rank's eval renders missed the sorted kernel: {ranks}")
+    log("ranks_done", seconds=time.perf_counter() - t_phase)
+
+
+def phase_last_tools(dev, tmp: str) -> None:
+    """demo_render, plot_train and gen_lm6d_cfgs (scale_eval_demo runs
+    beside them as its own process)."""
+    from deepim_tpu_torch.tools import demo_render, gen_lm6d_cfgs, plot_train
+
+    t0 = time.perf_counter()
+    demo = Path(tmp) / "demo"
+    out, _, launches, _ = run_cli(demo_render.main, [str(demo), "--device", str(dev)])
+    images = {p.name: p.stat().st_size for p in sorted(demo.iterdir())}
+    log("tool_demo_render", images=images, launches=launches, seconds=time.perf_counter() - t0)
+    if len(images) != 5 or not all(images.values()):
+        raise AssertionError(f"demo_render wrote {images}")
+
+    log_path = Path(tmp) / "train_log.jsonl"
+    log_path.write_text(TRAIN_LOGS["synthetic_small"])
+    out, _, _, _ = run_cli(plot_train.main, [str(log_path)])
+    png = Path(tmp) / "train_curves.png"
+    log("tool_plot_train", records=len(TRAIN_LOGS["synthetic_small"].splitlines()),
+        png_bytes=png.stat().st_size, line=out.splitlines()[0])
+    if not png.stat().st_size:
+        raise AssertionError("plot_train wrote an empty PNG")
+
+    cfgs = Path(tmp) / "lm6d_cfgs"
+    run_cli(gen_lm6d_cfgs.main, ["--out", str(cfgs)])
+    want = ROOT / "experiments" / "cfgs" / "lm6d"
+    same = ({p.name: p.read_bytes() for p in cfgs.iterdir()}
+            == {p.name: p.read_bytes() for p in want.iterdir()})
+    log("tool_gen_lm6d_cfgs", files=len(list(cfgs.iterdir())), equal_to_committed=same)
+    if not same:
+        raise AssertionError("gen_lm6d_cfgs differs from experiments/cfgs/lm6d")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-test-rank"]:
+        sys.exit(cli_test_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

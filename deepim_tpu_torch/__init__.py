@@ -30,7 +30,10 @@ own PNG codec, ``gen_video`` with its manifest) with ``cli.track``; and
 the host runtime (:mod:`deepim_tpu_torch.native`: its own copy of the
 reference's C++ for mesh parsing, vertex normals, decimation, PNG decoding
 and the prefetch reader, routed where the reference routes it) with the
-protocol tools (:mod:`deepim_tpu_torch.tools`).  All three rasterizer
+protocol tools (:mod:`deepim_tpu_torch.tools`); and several ranks
+(:mod:`deepim_tpu_torch.parallel`: process groups, rank meshes, the
+gradient all-reduce, the pose head's tensor parallelism; ``--n-devices``
+and ``torchrun`` on the drivers; ``dryrun_multichip``).  All three rasterizer
 kernels are hand-written CUDA (``raster/csrc``), built at first use on the
 card.
 """

@@ -35,8 +35,19 @@ when a name is not numeric).
 first calibrates static activation scales (``models/quant.py
 §calibrate_model``, estimator ``--quant-calib``, default ``max_c``) on the
 first two batches of the test stream, which then go back into the stream
-so every sample is still scored.  One card needs no data-parallel branch
-(multi-GPU is ROADMAP A14).
+so every sample is still scored.
+
+Data-parallel evaluation (the reference's data-mesh branch): with more
+than one rank (``--n-devices``, or ``torchrun``; ``parallel.launch``) whose
+count divides the test batch, every rank draws or loads the whole batch,
+as one process does (so the eval set is the single-device one), refines
+its contiguous rows, and the rows come back to every rank through one
+all-reduce of a zero-filled buffer of the whole set (exact, and on gloo
+with CUDA tensors, which have no ``all_gather``).  Rank 0 evaluates and
+writes the tables and files; the others write nothing.  With
+``--hypotheses``, every rank draws the whole batch's hypotheses from one
+process's seed and keeps its rows', so the answer is one process's.  A
+world that does not divide the batch refines every row on every rank.
 """
 
 from __future__ import annotations
@@ -99,6 +110,10 @@ def parse_args(argv=None):
                         "bop_results.csv (final poses)")
     p.add_argument("--device", default="cuda:0",
                    help="torch device to evaluate on (default cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--n-devices", type=int, default=0,
+                   help="data-parallel ranks, one process each (0 = every visible card; "
+                        "with --device cpu, that many CPU ranks; under torchrun the "
+                        "environment's world)")
     return p.parse_args(argv)
 
 
@@ -128,7 +143,8 @@ def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
                    out_size: tuple[int, int], coarse_iters: int = 0,
                    coarse_size: tuple[int, int] | None = None, hypotheses: int = 1,
                    no_refine: bool = False, want_depth: bool = False,
-                   with_mask: bool = False, vis: int = 0) -> dict:
+                   with_mask: bool = False, vis: int = 0,
+                   rank_rows: tuple[int, int] = (0, 1)) -> dict:
     """The eval loop: refine every batch of ``batches`` (dicts with
     ``obs_rgb``, ``pose_src``, ``pose_tgt``, ``class_idx`` and, as the
     model and ``want_depth`` need them, ``obs_mask`` and ``obs_depth``),
@@ -140,33 +156,40 @@ def refine_batches(model, assets, batches, k_cam: torch.Tensor, num_iters: int,
     first; (2, n, 3, 4) with ``no_refine`` or ``hypotheses`` > 1),
     ``pose_gt`` and ``class_idx`` (numpy) and ``vis_rows``, the first
     ``vis`` observed frames (numpy).  Batch ``bi`` of ``bs`` rows draws its
-    hypotheses from a generator seeded ``17 + bi*bs``.
+    hypotheses from a generator seeded ``17 + bi*bs``.  With ``rank_rows``
+    = (i, n), data rank ``i`` of ``n`` refines and returns its contiguous
+    ``bs/n`` rows of each whole batch; the hypotheses are drawn for the
+    whole batch first, so every row gets one process's draws.
     """
     from deepim_tpu_torch.data.lm6d import to_device
-    from deepim_tpu_torch.refine import refine_multi_hypothesis, refine_poses
+    from deepim_tpu_torch.refine import draw_hypotheses, refine_poses, select_hypotheses
 
     dev = assets.points.device
+    i, n = rank_rows
     trajs, gt_parts, cls_parts, vis_rows = [], [], [], []
     for bi, host in enumerate(batches):
         batch = to_device(host, dev)
+        bs = batch["obs_rgb"].shape[0]
+        if vis and len(vis_rows) < vis:
+            vis_rows += list(batch["obs_rgb"][:vis - len(vis_rows)].cpu().numpy())
+        multi = hypotheses > 1 and not no_refine
+        if multi:  # (hypotheses, bs, 3, 4), hypothesis-major as refine_multi_hypothesis draws
+            hyps = draw_hypotheses(torch.Generator(device=dev).manual_seed(17 + bi * bs),
+                                   batch["pose_src"], hypotheses).view(hypotheses, bs, 3, 4)
+        rows = slice(i * bs // n, (i + 1) * bs // n)
+        batch = {key: v[rows] if isinstance(v, torch.Tensor) else v for key, v in batch.items()}
         obs, init, cls = batch["obs_rgb"], batch["pose_src"], batch["class_idx"]
-        bs = obs.shape[0]
-        ks = k_cam.to(dev).expand(bs, 3, 3).contiguous()
+        ks = k_cam.to(dev).expand(obs.shape[0], 3, 3).contiguous()
         obs_mask = batch["obs_mask"] if with_mask else None
         obs_depth = batch.get("obs_depth") if want_depth else None
         gt_parts.append(batch["pose_tgt"])
         cls_parts.append(batch["class_idx"])
-        if vis and len(vis_rows) < vis:
-            vis_rows += list(obs[:vis - len(vis_rows)].cpu().numpy())
         if no_refine:
             trajs.append(init[None].expand(2, *init.shape))
-        elif hypotheses > 1:
-            best, _ = refine_multi_hypothesis(
-                model, assets, obs, init, ks, cls,
-                torch.Generator(device=dev).manual_seed(17 + bi * bs),
-                num_hypotheses=hypotheses, num_iters=num_iters, out_size=out_size,
-                obs_mask=obs_mask, obs_depth=obs_depth, coarse_iters=coarse_iters,
-                coarse_size=coarse_size)
+        elif multi:  # refine_multi_hypothesis on this rank's rows of the draws
+            best, _ = select_hypotheses(model, assets, obs, hyps[:, rows].reshape(-1, 3, 4), ks,
+                                        cls, num_iters, out_size, obs_mask, obs_depth,
+                                        coarse_iters, coarse_size)
             trajs.append(torch.stack([init, best]))
         else:
             trajs.append(refine_poses(
@@ -298,18 +321,41 @@ def bop_ids(records) -> tuple[np.ndarray | None, np.ndarray | None]:
         return None, None
 
 
+def gather_eval(out: dict, mesh, n: int, bs: int) -> dict:
+    """The whole set's ``traj``, ``pose_gt`` and ``class_idx`` on every rank
+    from each rank's rows of every batch of ``bs`` (``parallel.gather_rows``)."""
+    from deepim_tpu_torch.parallel.mesh import DATA_AXIS, gather_rows
+
+    traj = out["traj"]
+    k = bs // mesh.shape[DATA_AXIS]
+    idx = (torch.arange(n // bs)[:, None] * bs + mesh.data_index * k
+           + torch.arange(k)[None]).reshape(-1)
+    full = gather_rows(traj.transpose(0, 1).contiguous(), idx, n, mesh).transpose(0, 1)
+    gt = gather_rows(torch.from_numpy(out["pose_gt"]).to(traj.device), idx, n, mesh)
+    cls = gather_rows(torch.from_numpy(out["class_idx"]).to(traj.device), idx, n, mesh)
+    return {**out, "traj": full, "pose_gt": gt.cpu().numpy(), "class_idx": cls.cpu().numpy()}
+
+
 def main(argv=None) -> int:
-    from deepim_tpu_torch.cli.train import _device, load_assets_and_names
+    from deepim_tpu_torch.parallel import launch
+
+    args = parse_args(argv)
+    return launch(evaluate, args.n_devices, args.device, args, argv)
+
+
+def evaluate(dev: torch.device, args, argv=None) -> int:
+    """The evaluation of ``args`` on this rank (``dev``) -> 0."""
+    from deepim_tpu_torch.cli.train import load_assets_and_names
     from deepim_tpu_torch.config import update_config
     from deepim_tpu_torch.eval import evaluate_poses, format_table, write_bop_csv
     from deepim_tpu_torch.models.quant import CALIB_MODES
+    from deepim_tpu_torch.parallel import distributed, make_mesh, replicate
     from deepim_tpu_torch.raster.camera import make_intrinsics
     from deepim_tpu_torch.train.checkpoint import (
         checkpoint_dir, latest_step, load_params, orbax_dir, require_port_checkpoint,
         restore_checkpoint)
     from deepim_tpu_torch.train.train import make_model
 
-    args = parse_args(argv)
     cfg = update_config(args.cfg)
     if args.seed >= 0:
         cfg = dataclasses.replace(cfg, experiment=f"{cfg.experiment}_seed{args.seed}")
@@ -334,7 +380,10 @@ def main(argv=None) -> int:
         t = dataclasses.replace(t, trans_noise=(args.init_trans_noise,) * 3,
                                 trans_noise_max=(3.0 * args.init_trans_noise,) * 3)
     cfg = dataclasses.replace(cfg, train=t)
-    dev = _device(args.device)
+    world = distributed.world_size()
+    mesh = make_mesh(n_data=world) if world > 1 else None
+    lead = distributed.rank() == 0
+    say = print if lead else (lambda *a, **k: None)
     ckpt_dir = checkpoint_dir(cfg)
     require_port_checkpoint(ckpt_dir, orbax_dir(cfg))  # before any work
     out_dir = os.path.join(cfg.output_dir, cfg.experiment)
@@ -348,9 +397,11 @@ def main(argv=None) -> int:
     if latest_step(ckpt_dir) is not None:
         step, params = restore_checkpoint(ckpt_dir, device=dev)
         load_params(model, params)
-        print(f"loaded checkpoint step {step}")
+        say(f"loaded checkpoint step {step}")
     else:
-        print("WARNING: no checkpoint found — evaluating an untrained net (identity deltas)")
+        say("WARNING: no checkpoint found — evaluating an untrained net (identity deltas)")
+    if mesh is not None:
+        replicate(mesh, model)  # rank 0's parameters on every rank
 
     image_size = (d.image_height, d.image_width)
     n_cfg = cfg.network
@@ -374,18 +425,30 @@ def main(argv=None) -> int:
     if cfg.network.quant == "int8_static" and not args.no_refine:
         model, batches = calibrated(model, assets, batches, k_cam, out_size,
                                     cfg.test.test_iter, args.quant_calib)
+    dp = mesh is not None and bs % world == 0
+    if dp:
+        say(distributed.describe(dev))
+        say(f"eval data-parallel over {world} ranks ({bs // world} rows of each batch of "
+            f"{bs} a rank)")
+    elif mesh is not None:
+        say(f"batch {bs} does not divide {world} ranks: every rank refines every row")
     _sync(dev)
     t0 = time.time()
     out = refine_batches(
         model, assets, batches, k_cam, cfg.test.test_iter, out_size,
         coarse_iters=coarse_iters, coarse_size=coarse_size, hypotheses=args.hypotheses,
         no_refine=args.no_refine, want_depth=want_depth, with_mask=bool(n_cfg.input_mask),
-        vis=args.vis)
+        vis=args.vis, rank_rows=(mesh.data_index, world) if dp else (0, 1))
+    if dp:
+        out = gather_eval(out, mesh, n, bs)
     traj = out["traj"]
     _sync(dev)
     dt = time.time() - t0
+    if not lead:
+        return 0
     print(f"refined {n} hypotheses x {cfg.test.test_iter} iters in {dt:.2f}s "
-          f"({n / dt:.1f} poses/s on {dev}, {source})")
+          f"({n / dt:.1f} poses/s on {dev}{f' and {world - 1} more ranks' if dp else ''}, "
+          f"{source})")
     n_refined = n
 
     # Padded rows (the last record repeated) are scored and exported by

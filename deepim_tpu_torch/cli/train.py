@@ -1,9 +1,16 @@
 """Training driver: ``python -m deepim_tpu_torch.cli.train --cfg <yaml>``.
 
 Port of ``deepim_tpu/cli/train.py`` (``parse_args``,
-``load_assets_and_names``, ``main``) on one device: ``cuda:0`` unless
-``--device`` names another (``--device cpu`` for the CPU); without CUDA it
-raises rather than fall back.  Synthetic and zoo configs train with the
+``load_assets_and_names``, ``main``): ``cuda:0`` unless ``--device`` names
+another (``--device cpu`` for the CPU); without CUDA it raises rather than
+fall back.  ``--n-devices N`` trains data-parallel on N ranks, one process
+each (``parallel.launch``: spawned here, or the ranks of ``torchrun``, whose
+environment then gives the world; 0 takes every visible card, and more
+than the visible cards raises on CUDA; ``--device cpu`` runs N gloo ranks
+on the CPU).  Every rank trains on ``batch_size / N`` samples and the
+gradients are averaged (``train.make_*_step(mesh=...)``); only rank 0
+prints, writes ``train_log.jsonl`` and the checkpoints, and every rank
+restores them.  Synthetic and zoo configs train with the
 fused on-device synthesize-and-train step.  The on-disk datasets
 (``lm6d*``, ``ycb``) interleave steps on frames from disk
 (:class:`~deepim_tpu_torch.data.lm6d.TrainBatcher`, GT poses perturbed by
@@ -16,12 +23,15 @@ packages'); checkpoints go to
 
 Where the reference splits one JAX key per step, each step here reseeds
 one device generator from (seed, step), so a resumed run draws the same
-batches as an uninterrupted one.
+batches as an uninterrupted one.  With several ranks the synthetic step
+draws each rank's rows from that generator (``train.rank_generator``), and
+the on-disk step's perturbation reseeds it with the rank folded in.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -117,6 +127,10 @@ def parse_args(argv=None):
                         "dir with _seed<k> so runs don't clobber each other")
     p.add_argument("--device", default="cuda:0",
                    help="torch device to train on (default cuda:0; 'cpu' for the CPU)")
+    p.add_argument("--n-devices", type=int, default=0,
+                   help="data-parallel ranks, one process each (0 = every visible card; "
+                        "with --device cpu, that many CPU ranks; under torchrun the "
+                        "environment's world)")
     return p.parse_args(argv)
 
 
@@ -139,21 +153,27 @@ def on_disk(name: str) -> bool:
     return name.startswith("lm6d") or name == "ycb"
 
 
-def make_disk_step(model, assets: RenderAssets, cfg, names: list[str], k_cam: torch.Tensor):
+def make_disk_step(model, assets: RenderAssets, cfg, names: list[str], k_cam: torch.Tensor,
+                   mesh=None):
     """The on-disk train step: (state, generator) -> (state, metrics) on the
     next :class:`~deepim_tpu_torch.data.lm6d.TrainBatcher` batch (the
     ``train`` split of ``names`` under ``dataset.root``, shuffled from
     ``train.seed``), its GT poses perturbed by ``generator`` with the
-    training noise.  The step carries the batcher as ``.batcher``."""
+    training noise.  Under a data-parallel ``mesh`` each rank reads its
+    shard of the records at its share of the batch.  The step carries the
+    batcher as ``.batcher``."""
     from deepim_tpu_torch.data.lm6d import LM6DDataset, TrainBatcher, to_device
     from deepim_tpu_torch.data.pairs import perturb_poses
+    from deepim_tpu_torch.parallel.distributed import process_local_batch_size, rank, world_size
     from deepim_tpu_torch.train.train import make_train_step
 
     t = cfg.train
     dev = k_cam.device
-    batcher = TrainBatcher(LM6DDataset(cfg.dataset.root, names), names, t.batch_size,
-                           seed=t.seed, pin_memory=dev.type == "cuda")
-    train_step = make_train_step(model, assets, cfg)
+    batcher = TrainBatcher(LM6DDataset(cfg.dataset.root, names), names,
+                           process_local_batch_size(t.batch_size), seed=t.seed,
+                           pin_memory=dev.type == "cuda", num_shards=world_size(),
+                           shard_index=rank())
+    train_step = make_train_step(model, assets, cfg, mesh=mesh)
 
     def step(state, generator: torch.Generator):
         batch = to_device(batcher.next(), dev)
@@ -169,7 +189,16 @@ def make_disk_step(model, assets: RenderAssets, cfg, names: list[str], k_cam: to
 
 
 def main(argv=None) -> int:
+    from deepim_tpu_torch.parallel import launch
+
+    args = parse_args(argv)
+    return launch(train, args.n_devices, args.device, args)
+
+
+def train(dev: torch.device, args) -> int:
+    """The training run of ``args`` on this rank (``dev``) -> 0."""
     from deepim_tpu_torch.config import save_config, update_config
+    from deepim_tpu_torch.parallel import distributed, make_mesh, replicate
     from deepim_tpu_torch.raster.camera import make_intrinsics
     from deepim_tpu_torch.train.checkpoint import (
         checkpoint_dir, clear_checkpoints, latest_step, merge_pretrained,
@@ -177,7 +206,6 @@ def main(argv=None) -> int:
         save_train_state)
     from deepim_tpu_torch.train.train import init_state, make_model, make_synthetic_train_step
 
-    args = parse_args(argv)
     cfg = update_config(args.cfg)
     if args.num_steps:
         cfg = dataclasses.replace(
@@ -186,23 +214,32 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, seed=args.seed),
                                   experiment=f"{cfg.experiment}_seed{args.seed}")
     d, t = cfg.dataset, cfg.train
-    dev = _device(args.device)
+    world, rank = distributed.world_size(), distributed.rank()
+    mesh = make_mesh(n_data=world) if world > 1 else None
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
     out_dir = os.path.join(cfg.output_dir, cfg.experiment)
     ckpt_dir = checkpoint_dir(cfg)
-    os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, "config.yaml"))
-    print(f"device: {dev} ({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'})")
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
+        save_config(cfg, os.path.join(out_dir, "config.yaml"))
+    say(f"device: {dev} ({torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'})")
+    say(f"devices: {world} ({dev.type}); "
+        f"mesh={'1x1' if mesh is None else dict(mesh.shape)}")
+    say(distributed.describe(dev))
 
     assets, names, _ = load_assets_and_names(cfg, device=dev)
     model = make_model(cfg, assets.num_classes,
                        generator=torch.Generator().manual_seed(t.seed)).to(dev)
     state = init_state(cfg, model)
-    if args.resume and latest_step(ckpt_dir) is not None:
+    found = latest_step(ckpt_dir)
+    distributed.barrier()  # every rank has looked before rank 0 may clear
+    if args.resume and found is not None:
         restore_train_state(ckpt_dir, state)
-        print(f"resumed from step {state.step}")
+        say(f"resumed from step {state.step}")
     else:
-        if latest_step(ckpt_dir) is not None:
-            print("fresh run: clearing stale checkpoints (pass --resume to continue them)")
+        if found is not None:
+            say("fresh run: clearing stale checkpoints (pass --resume to continue them)")
             clear_checkpoints(ckpt_dir)
         if t.pretrained:
             # Start from another experiment's weights; whatever does not
@@ -210,12 +247,15 @@ def main(argv=None) -> int:
             require_port_checkpoint(t.pretrained, t.pretrained)
             src = restore_params_raw(t.pretrained, t.pretrained_step or None)
             merged, _ = merge_pretrained(model.state_dict(), src,
-                                         reinit=tuple(t.pretrained_reinit))
+                                         reinit=tuple(t.pretrained_reinit),
+                                         log=say)
             model.load_state_dict(merged)
-            print(f"pretrained init from {t.pretrained}")
+            say(f"pretrained init from {t.pretrained}")
+    if mesh is not None:
+        replicate(mesh, model)  # rank 0's parameters on every rank
 
     k_cam = make_intrinsics(d.fx, d.fy, d.cx, d.cy, device=dev)
-    syn_step = make_synthetic_train_step(model, assets, cfg, k_cam)
+    syn_step = make_synthetic_train_step(model, assets, cfg, k_cam, mesh=mesh)
     syn_step_coarse = None
     if t.coarse_fraction > 0:
         # Some steps run at the coarse crop size, so the shared flatten head
@@ -224,27 +264,28 @@ def main(argv=None) -> int:
         cfg_c = dataclasses.replace(cfg, network=dataclasses.replace(
             n, input_height=n.coarse_height or n.input_height // 2,
             input_width=n.coarse_width or n.input_width // 2))
-        syn_step_coarse = make_synthetic_train_step(model, assets, cfg_c, k_cam)
+        syn_step_coarse = make_synthetic_train_step(model, assets, cfg_c, k_cam, mesh=mesh)
 
     disk_step = None
     if on_disk(d.name):
-        disk_step = make_disk_step(model, assets, cfg, names, k_cam)
-        print(f"on-disk training: {disk_step.batcher.num_records} frames, "
-              f"syn_fraction={t.syn_fraction}")
+        disk_step = make_disk_step(model, assets, cfg, names, k_cam, mesh=mesh)
+        say(f"on-disk training: {disk_step.batcher.num_records} frames"
+            f"{f' on rank 0 of {world}' if world > 1 else ''}, syn_fraction={t.syn_fraction}")
 
     generator = torch.Generator(device=dev)
     t_last = time.time()
     log_path = os.path.join(out_dir, "train_log.jsonl")
-    with open(log_path, "a") as logf:
+    with open(log_path, "a") if lead else contextlib.nullcontext() as logf:
         for it in range(state.step, t.num_steps):
-            generator.manual_seed((t.seed + 1) * 1_000_003 + it)
+            seed = (t.seed + 1) * 1_000_003 + it
             if disk_step is not None and not frac_hit(t.syn_fraction, it):
-                _, metrics = disk_step(state, generator)
-            elif syn_step_coarse is not None and frac_hit(t.coarse_fraction, it):
-                _, metrics = syn_step_coarse(state, generator)
-            else:
-                _, metrics = syn_step(state, generator)
-            if (it + 1) % t.log_every == 0:
+                # the perturbation of this rank's records: a stream a rank
+                _, metrics = disk_step(state, generator.manual_seed(seed * world + rank))
+            else:  # the synthetic step draws each rank's rows (rank_generator)
+                syn = (syn_step_coarse if syn_step_coarse is not None
+                        and frac_hit(t.coarse_fraction, it) else syn_step)
+                _, metrics = syn(state, generator.manual_seed(seed))
+            if lead and (it + 1) % t.log_every == 0:
                 metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.time() - t_last
                 t_last = time.time()
@@ -257,7 +298,7 @@ def main(argv=None) -> int:
                 logf.flush()
             if (it + 1) % t.checkpoint_every == 0 or it + 1 == t.num_steps:
                 save_train_state(ckpt_dir, state)
-    print(f"done; checkpoints in {ckpt_dir}")
+    say(f"done; checkpoints in {ckpt_dir}")
     return 0
 
 

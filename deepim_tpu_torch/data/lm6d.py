@@ -37,8 +37,9 @@ The streaming loaders differ in form, not in content:
   reference's numpy ``astype(np.float32) / x``), so the host neither
   converts nor moves float32 frames.
 - ``TrainBatcher`` keeps the reference's ``np.random.RandomState(seed)``
-  permutation: its batches are the reference's, record for record.
-  Multi-process sharding (``num_shards``) is not carried over (ROADMAP A14).
+  permutation: its batches are the reference's, record for record, also
+  on one shard of several (``num_shards``, ``shard_index``: each rank of a
+  data-parallel run reads its own records).
 """
 
 from __future__ import annotations
@@ -502,16 +503,24 @@ class TrainBatcher:
     class_idx (B,) int64; :func:`to_device` moves them.  A worker's
     exception is re-raised at :meth:`next` with its cause chained, and the
     iterator stays usable.
+
+    ``num_shards``/``shard_index`` shard the roidb across ranks
+    (``records[shard_index::num_shards]``; ``batch_size`` is then the
+    rank's slice, ``parallel.process_local_batch_size(global_batch)``).
     """
 
     def __init__(self, dataset: LM6DDataset, objects: list[str], batch_size: int,
                  split: str = "train", seed: int = 0, pin_memory: bool | None = None,
-                 num_threads: int = 4):
+                 num_threads: int = 4, num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.records = [r for obj in objects for r in dataset.gt_roidb(obj, split)]
+        if num_shards > 1:
+            self.records = self.records[shard_index::num_shards]
         if not self.records:
-            raise ValueError(f"no '{split}' records under {dataset.root}")
+            raise ValueError(f"no '{split}' records under {dataset.root}"
+                             + (f" for shard {shard_index}/{num_shards}"
+                                if num_shards > 1 else ""))
         self._rng = np.random.RandomState(seed)
         self._order: list[int] = []
         self._slots = HostSlots(_pin_default(pin_memory))

@@ -450,7 +450,11 @@ class DeepIMFlowNet(nn.Module):
                                   stride=2, padding=1)
 
     @staticmethod
-    def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    def _linear(lin: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        """``lin`` in ``x``'s dtype; a tensor-parallel shard of fc1 or fc2
+        (``parallel/mesh.py``) applies itself, with its collective."""
+        if not isinstance(lin, nn.Linear):
+            return lin(x)
         return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
 
     def _decode(self, c6: torch.Tensor, skips: dict[str, torch.Tensor]

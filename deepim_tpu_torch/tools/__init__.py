@@ -1,8 +1,10 @@
 """Protocol tools of the port, each run as
 ``python -m deepim_tpu_torch.tools.<name>``: ``seed_variance``,
-``decimation_ab``, ``robustness_curve`` and ``supervise_train`` (ports of
-the reference's ``tools/`` of the same names, with their arguments and
-output format; the model tools take ``--device``, default ``cuda:0``)."""
+``decimation_ab``, ``robustness_curve``, ``supervise_train``,
+``demo_render``, ``plot_train``, ``gen_lm6d_cfgs`` and ``scale_eval_demo``
+(ports of the reference's ``tools/`` of the same names, with their
+arguments and output format; the tools that render or refine take
+``--device``, default ``cuda:0``; ``gen_lm6d_cfgs`` writes to ``--out``)."""
 
 from __future__ import annotations
 

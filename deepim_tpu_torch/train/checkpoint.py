@@ -28,6 +28,7 @@ import torch
 
 from deepim_tpu_torch.models.bridge import (
     BARE_DECONVS, DECODER_LAYERS, WRAPPED_DECONVS, flax_to_torch)
+from deepim_tpu_torch.parallel import distributed
 
 _FILE = re.compile(r"^step_(\d+)\.pt$")
 
@@ -69,10 +70,19 @@ def save_checkpoint(ckpt_dir: str, step: int, params: dict[str, torch.Tensor],
 
     A step that exists is overwritten; the file appears whole or not at
     all (written aside, then renamed).  Only the ``max_to_keep`` newest
-    steps are kept.
+    steps are kept.  In a process group only rank 0 writes, and every
+    rank returns after it has (a barrier).
     """
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = _path(ckpt_dir, int(step))
+    if distributed.rank() == 0:
+        _write(path, step, params, opt_state, max_to_keep)
+    distributed.barrier()
+    return path
+
+
+def _write(path: str, step: int, params, opt_state, max_to_keep: int) -> None:
+    ckpt_dir = os.path.dirname(path)
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + ".tmp"
     payload = {"step": int(step), "params": _to_cpu(params)}
     if opt_state is not None:
@@ -81,7 +91,6 @@ def save_checkpoint(ckpt_dir: str, step: int, params: dict[str, torch.Tensor],
     os.replace(tmp, path)
     for old in _steps(ckpt_dir)[:-max_to_keep]:
         os.remove(_path(ckpt_dir, old))
-    return path
 
 
 def save_train_state(ckpt_dir: str, state, max_to_keep: int = 3) -> str:
@@ -91,9 +100,11 @@ def save_train_state(ckpt_dir: str, state, max_to_keep: int = 3) -> str:
 
 
 def clear_checkpoints(ckpt_dir: str) -> None:
-    """Remove a checkpoint dir (fresh, non-resumed runs start clean)."""
-    if os.path.isdir(ckpt_dir):
+    """Remove a checkpoint dir (fresh, non-resumed runs start clean); in a
+    process group rank 0 removes it, behind a barrier."""
+    if distributed.rank() == 0 and os.path.isdir(ckpt_dir):
         shutil.rmtree(ckpt_dir)
+    distributed.barrier()
 
 
 def latest_step(ckpt_dir: str) -> int | None:

@@ -2,8 +2,12 @@
 
 Port of ``deepim_tpu/train/train.py`` (``make_model``, ``make_lr_schedule``,
 ``make_optimizer``, ``init_state``, ``compute_losses``, ``make_train_step``,
-``make_synthetic_train_step``) for one device; data parallelism (the
-reference's ``shard_map`` + ``pmean``) is ROADMAP A14.
+``make_synthetic_train_step``).  With ``mesh=`` (``parallel/mesh.py``) a
+step runs on every rank of a process group, where the reference's runs as
+a ``shard_map`` over its chips: each rank trains on its rows, then one
+all-reduce takes the mean of the gradients and of the metrics before the
+optimizer clips (the reference's ``pmean`` precedes optax's clip; a mean
+after the clip would clip each rank's own norm).
 
 - The state is a :class:`TrainState` (step, model, optimizer) that the
   steps update in place, where the reference returns a new one.
@@ -25,6 +29,7 @@ reference's ``shard_map`` + ``pmean``) is ROADMAP A14.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Callable
 
 import torch
@@ -45,6 +50,8 @@ from deepim_tpu_torch.models.flownet import (
 )
 from deepim_tpu_torch.ops.flow_gt import calc_flow
 from deepim_tpu_torch.ops.zoom import zoom_image_batch
+from deepim_tpu_torch.parallel.mesh import (
+    DATA_AXIS, global_grad_norm, mean_gradients, mean_metrics, sharded_parameters)
 from deepim_tpu_torch.refine.refiner import RenderAssets, build_network_inputs, gather_class
 
 
@@ -153,20 +160,26 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None) -> torch.Tensor:
     """Scale ``grads`` in place by max_norm / norm where norm >= max_norm
-    (optax's rule, no epsilon, no host sync) -> the unclipped norm."""
-    norm = global_norm(grads)
+    (optax's rule, no epsilon, no host sync) -> the unclipped norm
+    (``global_norm(grads)`` unless given)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
 
 
-def apply_gradients(state: TrainState, cfg, schedule: Callable[[int], float]) -> torch.Tensor:
+def apply_gradients(state: TrainState, cfg, schedule: Callable[[int], float],
+                    mesh=None) -> torch.Tensor:
     """One optimizer update from the parameters' ``.grad`` -> the unclipped
-    gradient norm."""
+    gradient norm (the whole model's under a tensor-parallel ``mesh``)."""
     grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]]
-    norm = clip_by_global_norm(grads, cfg.train.grad_clip)
+    norm = None
+    if mesh is not None and sharded_parameters(state.model):
+        norm = global_grad_norm(state.model, mesh)
+    norm = clip_by_global_norm(grads, cfg.train.grad_clip, norm)
     lr = schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
@@ -249,33 +262,60 @@ def compute_losses(model: DeepIMFlowNet, assets: RenderAssets,
     return total, metrics
 
 
-def _train_on(state: TrainState, assets: RenderAssets, batch, cfg, schedule):
+def _train_on(state: TrainState, assets: RenderAssets, batch, cfg, schedule, mesh=None):
     state.optimizer.zero_grad(set_to_none=False)
     loss, metrics = compute_losses(state.model, assets, batch, cfg)
     loss.backward()
-    metrics["grad_norm"] = apply_gradients(state, cfg, schedule)
+    if mesh is not None:
+        mean_gradients(state.model, mesh)
+        metrics = mean_metrics(metrics, mesh)
+    metrics["grad_norm"] = apply_gradients(state, cfg, schedule, mesh)
     return state, metrics
 
 
-def make_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg):
+def make_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg, mesh=None):
     """The train step on a given batch: (state, batch) -> (state, metrics),
-    ``state`` updated in place.  ``model`` is the state's model."""
+    ``state`` updated in place.  ``model`` is the state's model.
+
+    With ``mesh`` the step runs on every rank of it: ``batch`` is this
+    rank's rows (``parallel.shard_batch`` of the global batch, or a
+    rank-sharded loader's), and the gradients and metrics are the mean over
+    the mesh's data ranks.
+    """
     schedule = make_lr_schedule(cfg)
 
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         if state.model is not model:
             raise ValueError("the step was built for another model")
-        return _train_on(state, assets, batch, cfg, schedule)
+        return _train_on(state, assets, batch, cfg, schedule, mesh)
 
     return step
 
 
+def rank_generator(generator: torch.Generator, data_index: int) -> torch.Generator:
+    """A generator of its own for data rank ``data_index`` (the
+    reference's ``fold_in`` of the shard index): seeded from a hash of
+    ``generator``'s state and the index, read on the host.  ``generator``
+    then takes one draw, so a caller that does not reseed gets new
+    batches at its next step."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes()
+                            + data_index.to_bytes(4, "little")).digest()
+    local = torch.Generator(device=generator.device)
+    local.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
+    torch.randint(2, (1,), generator=generator, device=generator.device)
+    return local
+
+
 def make_synthetic_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg,
-                              k_cam: torch.Tensor):
+                              k_cam: torch.Tensor, mesh=None):
     """The fused synthesize-and-train step: (state, generator) -> (state,
     metrics), the batch drawn on the device from ``generator`` (on the
     assets' device) and never seen by the host.
 
+    With ``mesh`` every rank draws ``batch_size / n_data`` samples, from
+    :func:`rank_generator` when there are several data ranks (with one,
+    from ``generator`` itself: the draws of the step without a mesh), and
+    the gradients and metrics are the mean over the data ranks.
     ``dataset.name == "synthetic_occlusion"`` switches the generator to
     multi-object occlusion scenes (the Occluded-LINEMOD protocol).
     """
@@ -286,14 +326,20 @@ def make_synthetic_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg,
     gen = (synthetic_occlusion_batch if cfg.dataset.name == "synthetic_occlusion"
            else synthetic_batch)
     schedule = make_lr_schedule(cfg)
+    n_data = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    local_bs = t.batch_size // n_data
+    if local_bs * n_data != t.batch_size:
+        raise ValueError(f"batch {t.batch_size} must divide the mesh's {n_data} data ranks")
 
     def step(state: TrainState, generator: torch.Generator):
         if state.model is not model:
             raise ValueError("the step was built for another model")
-        batch = gen(generator, assets, t.batch_size, k_cam, image_size,
+        if n_data > 1:
+            generator = rank_generator(generator, mesh.data_index)
+        batch = gen(generator, assets, local_bs, k_cam, image_size,
                     rot_noise_deg=t.rot_noise_deg, rot_max_deg=t.rot_noise_max_deg,
                     trans_noise=t.trans_noise, trans_max=t.trans_noise_max)
         batch.pop("visible_frac", None)
-        return _train_on(state, assets, batch, cfg, schedule)
+        return _train_on(state, assets, batch, cfg, schedule, mesh)
 
     return step

@@ -23,7 +23,8 @@
   sample, and its trajectories equal the eval loop of the model that
   ``calibrate_model`` gives on those two batches.
   (tests/test_torch_disk_cli.py runs the on-disk sets.)
-- ``cli.train_test`` on a tiny config; ``--n-devices 2`` raises.
+- ``cli.train_test`` on a tiny config; ``--n-devices 2`` on one visible card
+  raises (the data-parallel runs are tests/test_torch_parallel.py's).
 """
 
 import functools
@@ -272,11 +273,14 @@ def test_cli_test_refuses_orbax_only_and_warns_without_checkpoint(tmp_path, caps
         cli_test.main(["--cfg", path, "--device", "cpu", "--num-samples", "4"])
 
 
-def test_cli_train_test(tmp_path, capsys):
+def test_cli_train_test(tmp_path, capsys, monkeypatch):
     spec = _spec(tmp_path, "tt")
     path = _write(tmp_path, spec, checkpoint=False)
-    with pytest.raises(NotImplementedError, match="A14"):
-        cli_train_test.main(["--cfg", path, "--device", "cpu", "--n-devices", "2"])
+    with monkeypatch.context() as m:  # more ranks than visible cards raises on CUDA
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(ValueError, match="exceeds the 1 visible"):
+            cli_train_test.main(["--cfg", path, "--device", "cuda:0", "--n-devices", "2"])
     assert cli_train_test.main(["--cfg", path, "--device", "cpu", "--num-samples", "4",
                                 "--vis", "1"]) == 0
     text = capsys.readouterr().out

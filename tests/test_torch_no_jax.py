@@ -10,9 +10,11 @@ the streamed batches, ``TrainBatcher``, an OBJ model), and convert public
 releases (a BOP JSON release, an original LINEMOD one with JPEG frames,
 ``cli.runbook --dry-run``: detect, convert, validate, write the eval
 config), and run the C++ host runtime (a 20,480-face PLY loaded and
-decimated, ``decode_png``, ``PrefetchReader``) and ``tools.seed_variance``
+decimated, ``decode_png``, ``PrefetchReader``) and ``tools.seed_variance``,
+and use the trivial rank mesh and ``tools.plot_train`` (the new
+``parallel`` modules, ``dryrun_multichip`` and the four last tools import)
 with jax, optax,
-orbax, PyYAML and PIL blocked; no source file of the port may import jax,
+orbax, PyYAML, PIL and matplotlib blocked; no source file of the port may import jax,
 flax, orbax, PIL or the reference, none may import yaml when it is
 imported, and none names the reference's native library.
 """
@@ -28,7 +30,7 @@ PKG = ROOT / "deepim_tpu_torch"
 
 _PROBE = r"""
 import sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "deepim_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "matplotlib", "deepim_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -195,6 +197,18 @@ with tempfile.TemporaryDirectory() as d:
 for m in ("native", "tools.seed_variance", "tools.decimation_ab", "tools.robustness_curve",
           "tools.supervise_train"):
     assert "deepim_tpu_torch." + m in mods, m
+for m in ("parallel", "parallel.mesh", "parallel.distributed", "dryrun_multichip",
+          "tools.demo_render", "tools.plot_train", "tools.gen_lm6d_cfgs",
+          "tools.scale_eval_demo"):
+    assert "deepim_tpu_torch." + m in mods, m
+from deepim_tpu_torch.parallel import make_mesh, shard_batch
+assert shard_batch(make_mesh(), {"x": torch.zeros(4)})["x"].shape == (4,)
+from deepim_tpu_torch.tools import plot_train
+with tempfile.TemporaryDirectory() as d:
+    with open(d + "/train_log.jsonl", "w") as f:
+        f.write('{"step": 1, "loss": 1.0, "add_0": 0.1}\n{"step": 2, "loss": 0.5, "add_0": 0.05}\n')
+    assert plot_train.main([d + "/train_log.jsonl"]) == 0
+    assert read_png(d + "/train_curves.png").shape == (825, 1650, 3)
 try:
     from deepim_tpu_torch.config import update_config
     update_config("experiments/cfgs/synthetic_all.yaml")

@@ -1,14 +1,21 @@
-"""deepim_tpu_torch.tools against the reference's tools/ (CPU).
+"""deepim_tpu_torch.tools against the reference's tools/ (CPU); the
+supervisor's cases are tests/test_torch_supervisor.py's.
 
-- ``supervise_train``: the seven cases of tests/test_supervisor.py (the
-  probe gating, the probe itself on the CPU and timing out, the done
-  marker, the per-launch step scan), the forwarded ``--device`` picking
-  the probe's device, and a supervised ``cli.train`` on the CPU killed
-  with SIGKILL after its first checkpoint: the supervisor relaunches it
-  with ``--resume``, it resumes from that checkpoint and the supervisor
-  exits 0 on the done line.
 - ``seed_variance``: on the same ``eval_results.json`` files the port's
   table and recorded aggregate equal the reference tool's.
+- ``gen_lm6d_cfgs``: the port's ``--out`` tree equals, byte for byte, the
+  reference tool's (run in a tmp working directory) and the committed
+  ``experiments/cfgs/lm6d/`` (16 files).
+- ``plot_train``: on a log with the port's ``train_log.jsonl`` keys, the
+  smoothed series of each panel equal the reference's ``ema`` over its
+  ``PANELS``, both print the same ``wrote`` line, and the port writes its
+  PNG with matplotlib blocked.
+- ``demo_render``: the port writes the reference's five images, each a PNG
+  of the reference's size (the reference's own run, 35 s of XLA on the CPU,
+  is left out; its file names are read from its source).
+- ``scale_eval_demo``: the port's generated set is the reference's, record
+  for record and frame for frame (both read by the port); the streamed
+  ``cli.test --no-refine`` runs over it and prints the peak RSS.
 - ``decimation_ab`` and ``robustness_curve`` (without and with
   hypotheses): the port's tool and the reference's at 48x64 with 8 samples,
   both without a checkpoint (identity-delta refiners) and fed the same
@@ -26,10 +33,7 @@
 import json
 import os
 import re
-import signal
-import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -37,88 +41,22 @@ import pytest
 import yaml
 
 from deepim_tpu_torch.tools import decimation_ab as dab_t
+from deepim_tpu_torch.tools import demo_render as demo_t
+from deepim_tpu_torch.tools import gen_lm6d_cfgs as gen_t
+from deepim_tpu_torch.tools import plot_train as plot_t
 from deepim_tpu_torch.tools import robustness_curve as rob_t
+from deepim_tpu_torch.tools import scale_eval_demo as scale_t
 from deepim_tpu_torch.tools import seed_variance as sv_t
-from deepim_tpu_torch.tools import supervise_train as sup
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from tools import decimation_ab as dab_j  # noqa: E402
+from tools import gen_lm6d_cfgs as gen_j  # noqa: E402
+from tools import plot_train as plot_j  # noqa: E402
 from tools import robustness_curve as rob_j  # noqa: E402
+from tools import scale_eval_demo as scale_j  # noqa: E402
 from tools import seed_variance as sv_j  # noqa: E402
-
-
-# -- supervise_train: the cases of tests/test_supervisor.py ---------------------
-
-
-def test_wait_for_device_no_wait_when_alive():
-    sleeps = []
-    sup.wait_for_device(alive=lambda _t: True, sleep=sleeps.append)
-    assert sleeps == []
-
-
-def test_wait_for_device_retries_until_alive():
-    answers = iter([False, False, True])
-    sleeps = []
-    sup.wait_for_device(alive=lambda _t: next(answers), sleep=sleeps.append, retry_sec=7)
-    assert sleeps == [7, 7]
-
-
-def test_device_alive_on_the_cpu():
-    # the probe subprocess does its round trip through the CPU device
-    assert sup.device_alive(timeout_sec=300, device="cpu")
-
-
-def test_device_alive_times_out(monkeypatch):
-    # A probe that can never finish inside the timeout reports dead
-    # rather than hanging the supervisor.
-    monkeypatch.setattr(sup, "PROBE_SRC", "import time; time.sleep(60)")
-    assert not sup.device_alive(timeout_sec=1)
-
-
-def test_tail_done(tmp_path):
-    log = tmp_path / "t.log"
-    log.write_bytes(b"step 99/100\n")
-    assert not sup.tail_done(str(log))
-    log.write_bytes(b"step 100/100\ndone; checkpoints in /x\n")
-    assert sup.tail_done(str(log))
-
-
-def test_stepped_since_scopes_to_current_launch(tmp_path):
-    # Step lines from a PREVIOUS run (before the relaunch offset) must
-    # not count: a relaunched process is starting up again and needs the
-    # 3x start-up budget, not the 1x steady-state budget.
-    log = tmp_path / "t.log"
-    log.write_bytes(b"launch\nstep 100/200 loss=1\nstep 200/200\n")
-    offset = log.stat().st_size
-    assert not sup.stepped_since(str(log), offset)
-    with open(log, "ab") as f:
-        f.write(b"relaunch banner\nstarting...\n")
-    assert not sup.stepped_since(str(log), offset)
-    with open(log, "ab") as f:
-        f.write(b"step 201/400 loss=1\n")
-    assert sup.stepped_since(str(log), offset)
-
-
-def test_stepped_since_fresh_log_and_straddle(tmp_path):
-    log = tmp_path / "t.log"
-    log.write_bytes(b"step 1/10\n")
-    assert sup.stepped_since(str(log), 0)  # file-start step line counts
-    # A "\nstep " whose newline falls exactly at the offset still counts.
-    log.write_bytes(b"banner")
-    off = log.stat().st_size
-    with open(log, "ab") as f:
-        f.write(b"\nstep 2/10\n")
-    assert sup.stepped_since(str(log), off + 1)
-    assert not sup.stepped_since(str(tmp_path / "missing.log"), 0)
-
-
-@pytest.mark.parametrize("extra,device", [
-    ([], "cuda:0"), (["--", "--device", "cpu"], "cpu"), (["--device=cuda:1"], "cuda:1"),
-    (["--num-steps", "5"], "cuda:0")])
-def test_the_probe_takes_the_forwarded_device(extra, device):
-    assert sup.train_device(extra) == device
 
 
 def _spec(tmp_path, **train):
@@ -140,38 +78,6 @@ def _cfg(tmp_path, **train) -> str:
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(_spec(tmp_path, **train)))
     return str(path)
-
-
-def test_supervised_training_recovers_from_a_kill(tmp_path):
-    from deepim_tpu_torch.train.checkpoint import latest_step
-
-    cfg = _cfg(tmp_path, num_steps=30)
-    ckpt = tmp_path / "out" / "tools" / "checkpoints_torch"
-    log = tmp_path / "sup.log"
-    proc = subprocess.Popen(
-        [sys.executable, "-u", "-m", "deepim_tpu_torch.tools.supervise_train", "--cfg", cfg,
-         "--log", str(log), "--poll-sec", "0.5", "--", "--device", "cpu"],
-        cwd=ROOT, stdout=subprocess.PIPE, text=True, env={**os.environ, "OMP_NUM_THREADS": "2"})
-    lines, killed = [], None
-    try:
-        for line in proc.stdout:
-            lines.append(line)
-            m = re.search(r"launched pid (\d+)", line)
-            if m and killed is None:
-                deadline = time.time() + 120
-                while latest_step(str(ckpt)) is None and time.time() < deadline:
-                    time.sleep(0.05)
-                killed = latest_step(str(ckpt))
-                os.killpg(int(m.group(1)), signal.SIGKILL)
-        assert proc.wait(timeout=300) == 0, "".join(lines)
-    finally:
-        proc.kill()
-    out = "".join(lines)
-    assert killed is not None and "pid died unfinished (rc=-9); resume #1" in out
-    assert "training complete (rc=0)" in out and out.count("--resume") == 2
-    text = log.read_text()
-    assert f"resumed from step {killed}" in text and "done; checkpoints in" in text
-    assert latest_step(str(ckpt)) == 30
 
 
 # -- seed_variance ----------------------------------------------------------------
@@ -434,3 +340,101 @@ def test_robustness_curve_runs_as_the_reference_tool(tmp_path, capsys, monkeypat
     assert len(evals) == 8  # init and refined, two levels, both sides
     for (_, _, _, a), (_, _, _, b) in zip(evals[:4], evals[4:]):
         _means_close(a["mean"], b["mean"])
+
+
+# -- gen_lm6d_cfgs, plot_train, demo_render, scale_eval_demo ------------------------
+
+
+def _tree(root: Path) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(root.iterdir())}
+
+
+def test_gen_lm6d_cfgs_equals_the_reference_and_the_committed_tree(tmp_path, monkeypatch,
+                                                                   capsys):
+    monkeypatch.chdir(tmp_path)  # the reference writes the relative experiments/cfgs/lm6d
+    assert gen_j.main() == 0
+    assert gen_t.main(["--out", str(tmp_path / "port")]) == 0
+    out = capsys.readouterr().out
+    assert "wrote 16 configs under" in out
+    port = _tree(tmp_path / "port")
+    assert len(port) == 16
+    assert port == _tree(tmp_path / "experiments" / "cfgs" / "lm6d")
+    assert port == _tree(ROOT / "experiments" / "cfgs" / "lm6d")
+
+
+def test_plot_train_series_equal_the_reference_without_matplotlib(tmp_path, monkeypatch,
+                                                                  capsys):
+    from deepim_tpu_torch.data.png import read_png
+
+    rng = np.random.RandomState(0)
+    log = tmp_path / "exp" / "train_log.jsonl"
+    log.parent.mkdir()
+    with open(log, "w") as f:  # the keys cli.train writes (train_iter 2, flow + mask)
+        for step in range(1, 41):
+            rec = {"step": step, "loss": float(np.exp(-step / 20) + 0.1 * rng.rand())}
+            for it in range(2):
+                for k in ("pm_loss", "flow_loss", "mask_loss", "rot_err_deg", "trans_err",
+                          "add"):
+                    rec[f"{k}_{it}"] = float(rng.rand() / step)
+            rec["grad_norm"] = float(rng.rand())
+            f.write(json.dumps(rec) + "\n")
+    recs = plot_j.load(str(log))
+    keys = sorted({k for r in recs for k in r} - {"step", "time"})
+    for (title, log_y, series), (title_j, prefixes, log_y_j) in zip(
+            plot_t.panel_series(recs, 0.9), plot_j.PANELS):
+        assert (title, log_y) == (title_j, log_y_j)
+        cols = sorted(k for k in keys if any(k == p or k.startswith(p) for p in prefixes))
+        assert list(series) == cols and cols
+        for k in cols:
+            assert series[k] == plot_j.ema([r.get(k, float("nan")) for r in recs], 0.9)
+    assert plot_j.main([str(log), "--out", str(tmp_path / "j.png")]) == 0
+    line_j = capsys.readouterr().out.splitlines()[0]
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # the card's machine has none
+    assert plot_t.main([str(log), "--out", str(tmp_path / "t.png")]) == 0
+    line_t = capsys.readouterr().out.splitlines()[0]
+    assert line_t.replace("t.png", "j.png") == line_j
+    img = read_png(str(tmp_path / "t.png"))
+    assert img.shape == (*plot_t.SIZE, 3) and len(np.unique(img.reshape(-1, 3), axis=0)) > 3
+
+
+def test_demo_render_writes_the_reference_images(tmp_path, capsys):
+    from deepim_tpu_torch.data.png import read_png
+
+    src = (ROOT / "tools" / "demo_render.py").read_text()
+    names = sorted(re.findall(r'os\.path\.join\(out_dir, "([\w.]+\.png)"\)', src))
+    assert len(names) == 5
+    assert demo_t.main([str(tmp_path / "demo"), "--device", "cpu"]) == 0
+    assert sorted(os.listdir(tmp_path / "demo")) == names
+    sizes = {n: read_png(str(tmp_path / "demo" / n)).shape for n in names}
+    from deepim_tpu_torch.utils import side_by_side
+
+    assert sizes["objects.png"] == side_by_side(*[np.zeros((480, 640, 3), np.uint8)] * 4).shape
+    for n in ("overlay_init_vs_observed.png", "flow_gt.png", "scene.png", "textured.png"):
+        assert sizes[n] == (480, 640, 3), n
+    scene = read_png(str(tmp_path / "demo" / "scene.png"))
+    assert scene.max() > 0  # the objects are in view
+    assert "wrote demo images to" in capsys.readouterr().out
+
+
+def test_scale_eval_demo_generates_the_reference_set_and_streams_it(tmp_path, capsys):
+    from deepim_tpu_torch.data.lm6d import LM6DDataset
+
+    hw = (24, 32)
+    scale_j.gen_noise_dataset(str(tmp_path / "j"), 8, hw)
+    scale_t.gen_noise_dataset(str(tmp_path / "t"), 8, hw)
+    dj, dt = (LM6DDataset(str(tmp_path / s), ["box", "icosphere"]) for s in ("j", "t"))
+    for obj in ("box", "icosphere"):
+        rj, rt = dj.gt_roidb(obj, "test"), dt.gt_roidb(obj, "test")
+        assert len(rj) == len(rt) == 4
+        for a, b in zip(rj, rt):
+            assert (a.scene, a.frame, a.class_idx) == (b.scene, b.frame, b.class_idx)
+            np.testing.assert_array_equal(a.pose, b.pose)
+            for x, y in zip(dj.load_frame_raw(a), dt.load_frame_raw(b)):
+                np.testing.assert_array_equal(x, y)
+    assert scale_t.main(["--frames", "8", "--height", "24", "--width", "32", "--batch-size",
+                         "4", "--root", str(tmp_path / "t"), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "[INIT]" in out
+    assert re.search(r"streamed eval over 8 frames x 3000 points: [\d.]+s, peak host RSS "
+                     r"[\d.]+ GB", out)
+    assert not (tmp_path / "t").exists()  # removed without --keep

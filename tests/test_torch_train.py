@@ -12,7 +12,7 @@
   each parameter's gradient within 1e-3 of that leaf's max abs (a raster
   edge pixel can fall the other way, as in tests/test_torch_refine.py).
 - ``train_iter=2`` runs two iterations and detaches the pose between
-  them; a tiny micro-overfit makes the loss fall.
+  them (the micro-overfit is tests/test_torch_overfit.py's).
 
 The checkpoints and the driver are tests/test_torch_train_cli.py's.
 """
@@ -224,27 +224,6 @@ def test_refine_runs_a_training_model_pose_only():
     assert ran == []
     assert (got - batch["pose_src"]).abs().max() > 1e-4
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-
-
-def test_micro_overfit():
-    """The loss falls on a fixed batch (tests/test_train.py §test_micro_overfit
-    at a smaller size): a gradient-direction test, flow/mask heads off."""
-    spec = _spec(w_flow=0.0, w_mask=0.0, lr=3e-4, optimizer="adam", weight_decay=0.0)
-    spec["network"].update(with_flow=False, with_mask=False, fc_dim=64)
-    cfg = config_from_dict(spec)
-    assets = build_assets(_meshes(), num_points=64, device="cpu")
-    model = train_t.make_model(cfg, 2, generator=torch.Generator().manual_seed(0))
-    state = train_t.init_state(cfg, model)
-    step = train_t.make_train_step(model, assets, cfg)
-    batch = synthetic_batch(torch.Generator().manual_seed(5), assets, 4,
-                            torch.from_numpy(K), IMG)
-    losses, rot_errs = [], []
-    for _ in range(40):
-        state, metrics = step(state, batch)
-        losses.append(float(metrics["loss"]))
-        rot_errs.append(float(metrics["rot_err_deg_0"]))
-    assert min(losses) < losses[0] * 0.5, losses[::5]
-    assert min(rot_errs) < rot_errs[0] * 0.7, rot_errs[::5]
 
 
 def test_synthetic_step_and_make_model_variants():
