@@ -42,6 +42,7 @@ from deepim_tpu_torch.raster.raster_ref import (
     project_vertices,
     shade_vertices,
 )
+from deepim_tpu_torch.utils.profiling import stage
 
 #: Launches of each hand-written kernel, and renders that took the cols
 #: path's lossless sorted fallback.  Only the wrappers and the cols
@@ -649,8 +650,10 @@ def raster_topk(params, lists, counts, h: int, w: int):
 def _render_from_params_sorted(params, bbox, face_ok, image_size,
                                sy_span: int = 4, sx_span: int = 2):
     """Sort-bin, then the sorted kernel -> (rgb (B,3,H,W), depth (B,H,W))."""
-    vals, starts, glob = bin_faces_sorted(bbox, face_ok, image_size, sy_span, sx_span)
-    return raster_sorted(params, vals, starts, glob, *image_size)
+    with stage("render.bin"):
+        vals, starts, glob = bin_faces_sorted(bbox, face_ok, image_size, sy_span, sx_span)
+    with stage("render.raster"):
+        return raster_sorted(params, vals, starts, glob, *image_size)
 
 
 def _render_from_params_cols(params, bbox, face_ok, image_size):
@@ -663,20 +666,25 @@ def _render_from_params_cols(params, bbox, face_ok, image_size):
     one device->host read per render.
     """
     h, w = image_size
-    face_ids, starts, glob = bin_faces_packed(bbox, face_ok, image_size)
-    if int(glob[:, -1].max()) > _COLS_GLOBAL_CAP:
+    with stage("render.bin"):
+        face_ids, starts, glob = bin_faces_packed(bbox, face_ok, image_size)
+        overflow = int(glob[:, -1].max()) > _COLS_GLOBAL_CAP
+    if overflow:
         LAUNCHES["cols_fallback"] += 1
         return _render_from_params_sorted(
             params, bbox, face_ok, image_size,
             sy_span=_cdiv(h, SORT_TILE[0]), sx_span=_cdiv(w, SORT_TILE[1]))
-    return raster_cols(params, face_ids, starts, glob, h, w)
+    with stage("render.raster"):
+        return raster_cols(params, face_ids, starts, glob, h, w)
 
 
 def _render_from_params_topk(params, bbox, face_ok, image_size,
                              max_faces_per_tile: int):
     """Capped per-tile binning, then the top-k kernel -> (rgb NCHW, depth)."""
-    lists, counts = bin_faces_topk(bbox, face_ok, image_size, max_faces_per_tile)
-    return raster_topk(params, lists, counts, *image_size)
+    with stage("render.bin"):
+        lists, counts = bin_faces_topk(bbox, face_ok, image_size, max_faces_per_tile)
+    with stage("render.raster"):
+        return raster_topk(params, lists, counts, *image_size)
 
 
 def _render_chunk(params, bbox, face_ok, image_size, binning, spans=(4, 2),
@@ -761,10 +769,12 @@ def render_batch(vertices, faces, colors, normals, poses, ks,
         vertices, colors, normals = (a.expand(b, *a.shape) for a in (vertices, colors, normals))
     if faces.dim() == 2:
         faces = faces.expand(b, *faces.shape)
-    params, bbox, face_ok = pack_face_params(vertices, faces, colors, normals, poses, ks,
-                                             lighting, z_near)
-    return _render_dispatch(params, bbox, face_ok, image_size, binning,
-                            max_faces_per_tile=max_faces_per_tile)
+    with stage("render"):
+        with stage("render.pack"):
+            params, bbox, face_ok = pack_face_params(vertices, faces, colors, normals, poses,
+                                                     ks, lighting, z_near)
+        return _render_dispatch(params, bbox, face_ok, image_size, binning,
+                                max_faces_per_tile=max_faces_per_tile)
 
 
 @torch.no_grad()
@@ -783,7 +793,9 @@ def render_batch_tri(tri_pos, tri_col, tri_nrm, poses, ks,
     rgb is an NHWC view of the kernels' NCHW output.
     """
     check_tile(tile)
-    params, bbox, face_ok = pack_tri_params(tri_pos, tri_col, tri_nrm, poses, ks,
-                                            lighting, z_near, cull_dir)
-    return _render_dispatch(params, bbox, face_ok, image_size, binning, spans,
-                            max_faces_per_tile)
+    with stage("render"):
+        with stage("render.pack"):
+            params, bbox, face_ok = pack_tri_params(tri_pos, tri_col, tri_nrm, poses, ks,
+                                                    lighting, z_near, cull_dir)
+        return _render_dispatch(params, bbox, face_ok, image_size, binning, spans,
+                                max_faces_per_tile)

@@ -24,6 +24,7 @@ from deepim_tpu_torch.raster.raster_cuda import (
     pack_corner_major,
 )
 from deepim_tpu_torch.raster.raster_ref import FLAT_LIGHTING, Lighting
+from deepim_tpu_torch.utils.profiling import stage
 
 
 def tri_uv_corner_major(mesh) -> np.ndarray:
@@ -124,23 +125,25 @@ def render_batch_textured(tri_pos, tri_uv, tri_nrm, poses, ks,
     raster dispatch as in ``render_batch_tri``.
     """
     check_tile(tile)
-    params, bbox, face_ok = pack_tri_params_uv(tri_pos, tri_uv, tri_nrm, poses, ks,
-                                               lighting, z_near, cull_dir)
-    uvi, depth = _render_dispatch(params, bbox, face_ok, image_size, binning, spans,
-                                  max_faces_per_tile)
-    u, v, intensity = uvi.unbind(-1)
-    if texture.dim() == 4 and tex_idx is not None:
-        albedo = _map_batch_chunks(
-            lambda uu, vv, ti: sample_texture_atlas(texture, ti, uu, vv),
-            deferred_chunk, u, v, tex_idx)
-    elif texture.dim() == 4:
-        albedo = _map_batch_chunks(
-            lambda tt, uu, vv: sample_texture_atlas(
-                tt, torch.arange(tt.shape[0], device=tt.device), uu, vv),
-            deferred_chunk, texture, u, v)
-    else:
-        albedo = _map_batch_chunks(
-            lambda uu, vv: sample_texture_bilinear(texture, uu, vv), deferred_chunk, u, v)
-    rgb = (albedo * intensity[..., None]).clamp(0.0, 1.0)
-    rgb = torch.where((depth > 0)[..., None], rgb, 0.0)
+    with stage("render"):
+        with stage("render.pack"):
+            params, bbox, face_ok = pack_tri_params_uv(tri_pos, tri_uv, tri_nrm, poses, ks,
+                                                       lighting, z_near, cull_dir)
+        uvi, depth = _render_dispatch(params, bbox, face_ok, image_size, binning, spans,
+                                      max_faces_per_tile)
+        u, v, intensity = uvi.unbind(-1)
+        if texture.dim() == 4 and tex_idx is not None:
+            albedo = _map_batch_chunks(
+                lambda uu, vv, ti: sample_texture_atlas(texture, ti, uu, vv),
+                deferred_chunk, u, v, tex_idx)
+        elif texture.dim() == 4:
+            albedo = _map_batch_chunks(
+                lambda tt, uu, vv: sample_texture_atlas(
+                    tt, torch.arange(tt.shape[0], device=tt.device), uu, vv),
+                deferred_chunk, texture, u, v)
+        else:
+            albedo = _map_batch_chunks(
+                lambda uu, vv: sample_texture_bilinear(texture, uu, vv), deferred_chunk, u, v)
+        rgb = (albedo * intensity[..., None]).clamp(0.0, 1.0)
+        rgb = torch.where((depth > 0)[..., None], rgb, 0.0)
     return rgb, depth

@@ -36,6 +36,7 @@ from deepim_tpu_torch.raster.textured import (
     render_batch_textured,
     sample_texture_bilinear,
 )
+from deepim_tpu_torch.utils.profiling import stage
 
 # Bound on one iteration's update: |vx|, |vy| <= 2000 crop px, |vz| <= 4.
 _TRANS_CLIP = (2000.0, 2000.0, 4.0)
@@ -255,37 +256,40 @@ def render_scene(assets: RenderAssets, class_idx: torch.Tensor, poses: torch.Ten
     def take(a):
         return a.index_select(0, flat_cls.to(a.device))
 
-    tri_pos, tri_nrm = take(assets.tri_pos), take(assets.tri_nrm)
-    poses_f = poses.reshape(-1, 3, 4)
-    ks_f = ks.repeat_interleave(m, dim=0)
-    cull_f = (take(assets.cull_dir) if assets.cull_dir is not None
-              else torch.zeros(b * m, dtype=torch.float32, device=tri_pos.device))
-    if assets.textured:
-        th = assets.textures.shape[1]
-        h_all = assets.textures.shape[0] * th
-        tidx = take(assets.tex_idx) if assets.tex_idx is not None else flat_cls
-        tri_uv = take(assets.tri_uv)  # (B*M, 6, F), a fresh copy
-        # v' puts the sample row y = (1-v)*(Th-1) into band tidx of the
-        # stacked atlas (sampler convention y = (1-v')*(H_all-1)).
-        y_band = (tidx.to(torch.float32)[:, None, None] * th
-                  + (1.0 - tri_uv[:, 1::2, :]) * (th - 1))
-        tri_uv[:, 1::2, :] = 1.0 - y_band / max(h_all - 1, 1)
-        params, bbox, face_ok = pack_tri_params_uv(tri_pos, tri_uv, tri_nrm, poses_f,
-                                                   ks_f, lighting, 0.01, cull_f)
-    else:
-        params, bbox, face_ok = raster_cuda.pack_tri_params(
-            tri_pos, take(assets.tri_col), tri_nrm, poses_f, ks_f, lighting, 0.01, cull_f)
-    face_ok = face_ok & valid.reshape(-1)[:, None]
-    f = params.shape[1]
-    out, depth = raster_cuda._render_dispatch(
-        params.reshape(b, m * f, 24), bbox.reshape(b, m * f, 4),
-        face_ok.reshape(b, m * f), out_size, "auto")
-    if assets.textured:
-        stacked = assets.textures.reshape(h_all, assets.textures.shape[2], 3)
-        albedo = _map_batch_chunks(
-            lambda uu, vv: sample_texture_bilinear(stacked, uu, vv), 16,
-            out[..., 0], out[..., 1])
-        out = (albedo * out[..., 2:3]).clamp(0.0, 1.0)
+    with stage("render"):
+        with stage("render.pack"):
+            tri_pos, tri_nrm = take(assets.tri_pos), take(assets.tri_nrm)
+            poses_f = poses.reshape(-1, 3, 4)
+            ks_f = ks.repeat_interleave(m, dim=0)
+            cull_f = (take(assets.cull_dir) if assets.cull_dir is not None
+                      else torch.zeros(b * m, dtype=torch.float32, device=tri_pos.device))
+            if assets.textured:
+                th = assets.textures.shape[1]
+                h_all = assets.textures.shape[0] * th
+                tidx = take(assets.tex_idx) if assets.tex_idx is not None else flat_cls
+                tri_uv = take(assets.tri_uv)  # (B*M, 6, F), a fresh copy
+                # v' puts the sample row y = (1-v)*(Th-1) into band tidx of the
+                # stacked atlas (sampler convention y = (1-v')*(H_all-1)).
+                y_band = (tidx.to(torch.float32)[:, None, None] * th
+                          + (1.0 - tri_uv[:, 1::2, :]) * (th - 1))
+                tri_uv[:, 1::2, :] = 1.0 - y_band / max(h_all - 1, 1)
+                params, bbox, face_ok = pack_tri_params_uv(tri_pos, tri_uv, tri_nrm, poses_f,
+                                                           ks_f, lighting, 0.01, cull_f)
+            else:
+                params, bbox, face_ok = raster_cuda.pack_tri_params(
+                    tri_pos, take(assets.tri_col), tri_nrm, poses_f, ks_f, lighting, 0.01,
+                    cull_f)
+            face_ok = face_ok & valid.reshape(-1)[:, None]
+        f = params.shape[1]
+        out, depth = raster_cuda._render_dispatch(
+            params.reshape(b, m * f, 24), bbox.reshape(b, m * f, 4),
+            face_ok.reshape(b, m * f), out_size, "auto")
+        if assets.textured:
+            stacked = assets.textures.reshape(h_all, assets.textures.shape[2], 3)
+            albedo = _map_batch_chunks(
+                lambda uu, vv: sample_texture_bilinear(stacked, uu, vv), 16,
+                out[..., 0], out[..., 1])
+            out = (albedo * out[..., 2:3]).clamp(0.0, 1.0)
     return out, depth
 
 
@@ -311,33 +315,37 @@ def build_network_inputs(model, assets_b: RenderAssets, obs_rgb: torch.Tensor,
     """Render -> zoom -> concat assembly of the CNN input.
 
     A missing observed mask/depth falls back to the rendered silhouette or
-    depth, as in the reference.
+    depth, as in the reference.  Spans: ``zoom.box`` (the box and the crop
+    intrinsics), ``render``, ``zoom.image`` (the observed crops),
+    ``network.input`` (masks, depth normalisation and the concat).
     """
-    box = compute_zoom_box(pose, k, assets_b.corners, out_size, zoom_margin)
-    k_zoom = zoom_intrinsics(k, box)
+    with_mask = getattr(model, "input_mask", False)
+    with_depth = getattr(model, "input_depth", False)
+    with stage("zoom.box"):
+        box = compute_zoom_box(pose, k, assets_b.corners, out_size, zoom_margin)
+        k_zoom = zoom_intrinsics(k, box)
     ren_rgb, ren_depth = render_crops(assets_b, pose, k_zoom, out_size)
-    obs_crop = zoom_image_batch(obs_rgb, box, out_size)
-
-    extras = ()
-    if getattr(model, "input_mask", False):
-        ren_mask = (ren_depth > 0).to(torch.float32)[..., None]
-        if obs_mask is not None:
+    with stage("zoom.image"):
+        obs_crop = zoom_image_batch(obs_rgb, box, out_size)
+        obs_mask_in = obs_depth_in = None
+        if with_mask and obs_mask is not None:
             obs_mask_in = zoom_image_batch(obs_mask[..., None].to(torch.float32),
                                            box, out_size, method="nearest")
-        else:
-            obs_mask_in = ren_mask
-        extras = (ren_mask, obs_mask_in)
-    if getattr(model, "input_depth", False):
-        z_src = pose[:, 2, 3]
-        if obs_depth is not None:
+        if with_depth and obs_depth is not None:
             obs_depth_in = zoom_image_batch(obs_depth[..., None], box, out_size,
                                             method="nearest")[..., 0]
-        else:
-            obs_depth_in = ren_depth
-        extras = (*extras, normalize_depth(ren_depth, z_src),
-                  normalize_depth(obs_depth_in, z_src))
-    return NetworkInputs(network_input(obs_crop, ren_rgb, extras), box, k_zoom,
-                         ren_rgb, ren_depth)
+    with stage("network.input"):
+        extras = ()
+        if with_mask:
+            ren_mask = (ren_depth > 0).to(torch.float32)[..., None]
+            extras = (ren_mask, ren_mask if obs_mask_in is None else obs_mask_in)
+        if with_depth:
+            z_src = pose[:, 2, 3]
+            extras = (*extras, normalize_depth(ren_depth, z_src),
+                      normalize_depth(ren_depth if obs_depth_in is None else obs_depth_in,
+                                      z_src))
+        x = network_input(obs_crop, ren_rgb, extras)
+    return NetworkInputs(x, box, k_zoom, ren_rgb, ren_depth)
 
 
 @torch.no_grad()
@@ -350,13 +358,15 @@ def refine_step(model, assets_b: RenderAssets, obs_rgb: torch.Tensor,
     only: a training model's flow decoder and mask head are skipped."""
     ni = build_network_inputs(model, assets_b, obs_rgb, pose, k, out_size,
                               zoom_margin, obs_mask=obs_mask, obs_depth=obs_depth)
-    out = model(ni.x, pose_only=True)
-    quat = decode_rot(select_class(out["rot_raw"], class_idx), model.rot_type)
-    trans = select_class(out["trans"], class_idx)
-    clip = torch.tensor(_TRANS_CLIP, dtype=trans.dtype, device=trans.device)
-    trans = trans.clamp(-clip, clip)
-    return RefineStepOutputs(apply_delta(pose, DeltaPose(quat, trans), ni.k_zoom),
-                             ni.k_zoom)
+    with stage("network.forward"):
+        out = model(ni.x, pose_only=True)
+    with stage("refine.compose"):
+        quat = decode_rot(select_class(out["rot_raw"], class_idx), model.rot_type)
+        trans = select_class(out["trans"], class_idx)
+        clip = torch.tensor(_TRANS_CLIP, dtype=trans.dtype, device=trans.device)
+        trans = trans.clamp(-clip, clip)
+        pose = apply_delta(pose, DeltaPose(quat, trans), ni.k_zoom)
+    return RefineStepOutputs(pose, ni.k_zoom)
 
 
 @torch.no_grad()
@@ -374,22 +384,27 @@ def refine_poses(model, assets: RenderAssets, obs_rgb: torch.Tensor,
     ``coarse_iters`` > 0 runs the first that many iterations at
     ``coarse_size`` (default half of ``out_size``), rendering the coarse
     ``assets.lod`` when there is one; the model needs a ``head_grid``.
+    Spans: ``refine_poses`` (batch, iters), and a ``refine.iter`` (it,
+    coarse, size) an iteration.
     """
-    assets_b = gather_class(assets, class_idx)
     coarse_iters = min(coarse_iters, num_iters)
     if coarse_iters > 0 and getattr(model, "head_grid", None) is None:
         raise ValueError(
             "coarse_iters > 0 needs one pose head shared across resolutions: "
             "build the model with head_grid=bottleneck_grid(H, W)")
     c_size = coarse_size or (out_size[0] // 2, out_size[1] // 2)
-    ab_coarse = (gather_class(assets.lod, class_idx)
-                 if coarse_iters and assets.lod is not None else assets_b)
-    pose = init_pose
-    trajs = [init_pose]
-    for it in range(num_iters):
-        coarse = it < coarse_iters
-        pose = refine_step(model, ab_coarse if coarse else assets_b, obs_rgb,
-                           pose, k, class_idx, c_size if coarse else out_size,
-                           zoom_margin, obs_mask=obs_mask, obs_depth=obs_depth).pose
-        trajs.append(pose)
-    return torch.stack(trajs) if return_all else pose
+    with stage("refine_poses", batch=init_pose.shape[0], iters=num_iters):
+        assets_b = gather_class(assets, class_idx)
+        ab_coarse = (gather_class(assets.lod, class_idx)
+                     if coarse_iters and assets.lod is not None else assets_b)
+        pose = init_pose
+        trajs = [init_pose]
+        for it in range(num_iters):
+            coarse = it < coarse_iters
+            size = c_size if coarse else out_size
+            with stage("refine.iter", it=it, coarse=coarse, size=size):
+                pose = refine_step(model, ab_coarse if coarse else assets_b, obs_rgb,
+                                   pose, k, class_idx, size, zoom_margin,
+                                   obs_mask=obs_mask, obs_depth=obs_depth).pose
+            trajs.append(pose)
+        return torch.stack(trajs) if return_all else pose

@@ -53,6 +53,7 @@ from deepim_tpu_torch.ops.zoom import zoom_image_batch
 from deepim_tpu_torch.parallel.mesh import (
     DATA_AXIS, global_grad_norm, mean_gradients, mean_metrics, sharded_parameters)
 from deepim_tpu_torch.refine.refiner import RenderAssets, build_network_inputs, gather_class
+from deepim_tpu_torch.utils.profiling import stage
 
 
 @dataclasses.dataclass
@@ -198,7 +199,9 @@ def compute_losses(model: DeepIMFlowNet, assets: RenderAssets,
     pose_src/pose_tgt (B, 3, 4), k (B, 3, 3), class_idx (B,).  Metrics:
     ``pm_loss_{it}`` (or ``rot_loss_{it}``/``trans_loss_{it}``),
     ``flow_loss_{it}``, ``mask_loss_{it}``, ``rot_err_deg_{it}``,
-    ``trans_err_{it}``, ``add_{it}`` and ``loss``, detached.
+    ``trans_err_{it}``, ``add_{it}`` and ``loss``, detached.  Spans: a
+    ``train.iter`` (it) an iteration, holding the refine loop's input spans
+    (``build_network_inputs``), ``network.forward`` and ``train.losses``.
     """
     t = cfg.train
     out_size = (cfg.network.input_height, cfg.network.input_width)
@@ -207,69 +210,75 @@ def compute_losses(model: DeepIMFlowNet, assets: RenderAssets,
     total = 0.0
     metrics: dict[str, torch.Tensor] = {}
     for it in range(t.train_iter):
-        # The refine loop's own input assembly (under no_grad): the network
-        # trains on the distribution it refines with.
-        ni = build_network_inputs(model, ab, batch["obs_rgb"], pose_src, batch["k"],
-                                  out_size, obs_mask=batch["obs_mask"],
-                                  obs_depth=batch["obs_depth"])
-        kz = ni.k_zoom
-        out = model(ni.x)
-        quat = decode_rot(select_class(out["rot_raw"], batch["class_idx"]), model.rot_type)
-        delta = DeltaPose(quat, select_class(out["trans"], batch["class_idx"]))
+        with stage("train.iter", it=it):
+            # The refine loop's own input assembly (under no_grad): the network
+            # trains on the distribution it refines with.
+            ni = build_network_inputs(model, ab, batch["obs_rgb"], pose_src, batch["k"],
+                                      out_size, obs_mask=batch["obs_mask"],
+                                      obs_depth=batch["obs_depth"])
+            with stage("network.forward"):
+                out = model(ni.x)
+            kz = ni.k_zoom
+            with stage("train.losses"):
+                quat = decode_rot(select_class(out["rot_raw"], batch["class_idx"]), model.rot_type)
+                delta = DeltaPose(quat, select_class(out["trans"], batch["class_idx"]))
 
-        if t.pose_loss == "separate":
-            rot_l, trans_l = angle_trans_l1_loss(delta, calc_delta(pose_src, pose_tgt, kz))
-            loss_it = t.w_rot * rot_l.mean() + t.w_trans * trans_l.mean()
-            metrics[f"rot_loss_{it}"] = rot_l.mean().detach()
-            metrics[f"trans_loss_{it}"] = trans_l.mean().detach()
-        else:
-            pm = point_matching_loss(
-                ab.points, delta, pose_src, pose_tgt, kz,
-                sym_poses=ab.sym_poses if t.sym_aware_pm else None,
-                sym_continuous=ab.sym_continuous if t.sym_aware_pm else None)
-            loss_it = t.w_pm * pm.mean()
-            metrics[f"pm_loss_{it}"] = pm.mean().detach()
+                if t.pose_loss == "separate":
+                    rot_l, trans_l = angle_trans_l1_loss(delta, calc_delta(pose_src, pose_tgt, kz))
+                    loss_it = t.w_rot * rot_l.mean() + t.w_trans * trans_l.mean()
+                    metrics[f"rot_loss_{it}"] = rot_l.mean().detach()
+                    metrics[f"trans_loss_{it}"] = trans_l.mean().detach()
+                else:
+                    pm = point_matching_loss(
+                        ab.points, delta, pose_src, pose_tgt, kz,
+                        sym_poses=ab.sym_poses if t.sym_aware_pm else None,
+                        sym_continuous=ab.sym_continuous if t.sym_aware_pm else None)
+                    loss_it = t.w_pm * pm.mean()
+                    metrics[f"pm_loss_{it}"] = pm.mean().detach()
 
-        if model.with_flow and t.w_flow > 0:
-            with torch.no_grad():
-                obs_depth_crop = zoom_image_batch(batch["obs_depth"][..., None], ni.box,
-                                                  out_size, "nearest")[..., 0]
-                flow_gt, valid = calc_flow(ni.ren_depth, pose_src, pose_tgt, kz,
-                                           obs_depth_crop,
-                                           occlusion_stride=t.flow_occ_stride)
-            fl = flow_epe_loss(out["flow"], flow_gt, valid)
-            loss_it = loss_it + t.w_flow * fl.mean()
-            metrics[f"flow_loss_{it}"] = fl.mean().detach()
+                if model.with_flow and t.w_flow > 0:
+                    with torch.no_grad():
+                        obs_depth_crop = zoom_image_batch(batch["obs_depth"][..., None], ni.box,
+                                                          out_size, "nearest")[..., 0]
+                        flow_gt, valid = calc_flow(ni.ren_depth, pose_src, pose_tgt, kz,
+                                                   obs_depth_crop,
+                                                   occlusion_stride=t.flow_occ_stride)
+                    fl = flow_epe_loss(out["flow"], flow_gt, valid)
+                    loss_it = loss_it + t.w_flow * fl.mean()
+                    metrics[f"flow_loss_{it}"] = fl.mean().detach()
 
-        if model.with_mask and t.w_mask > 0:
-            with torch.no_grad():
-                obs_mask_crop = zoom_image_batch(
-                    batch["obs_mask"][..., None].to(torch.float32), ni.box, out_size,
-                    "nearest")[..., 0]
-            ml = mask_ce_loss(out["mask_logit"], obs_mask_crop)
-            loss_it = loss_it + t.w_mask * ml.mean()
-            metrics[f"mask_loss_{it}"] = ml.mean().detach()
+                if model.with_mask and t.w_mask > 0:
+                    with torch.no_grad():
+                        obs_mask_crop = zoom_image_batch(
+                            batch["obs_mask"][..., None].to(torch.float32), ni.box, out_size,
+                            "nearest")[..., 0]
+                    ml = mask_ce_loss(out["mask_logit"], obs_mask_crop)
+                    loss_it = loss_it + t.w_mask * ml.mean()
+                    metrics[f"mask_loss_{it}"] = ml.mean().detach()
 
-        total = total + loss_it
-        # Pose-accuracy monitors; the next iteration refines from the
-        # updated pose (in the batch's dtype), with the gradient stopped there.
-        pose_new = apply_delta(pose_src, delta, kz).detach().to(pose_src.dtype)
-        metrics[f"rot_err_deg_{it}"] = rot_error_deg(pose_new, pose_tgt).mean()
-        metrics[f"trans_err_{it}"] = trans_error(pose_new, pose_tgt).mean()
-        metrics[f"add_{it}"] = add_error(ab.points, pose_new, pose_tgt).mean()
-        pose_src = pose_new
+                # Pose-accuracy monitors; the next iteration refines from the
+                # updated pose (in the batch's dtype), with the gradient stopped there.
+                pose_new = apply_delta(pose_src, delta, kz).detach().to(pose_src.dtype)
+                metrics[f"rot_err_deg_{it}"] = rot_error_deg(pose_new, pose_tgt).mean()
+                metrics[f"trans_err_{it}"] = trans_error(pose_new, pose_tgt).mean()
+                metrics[f"add_{it}"] = add_error(ab.points, pose_new, pose_tgt).mean()
+            total = total + loss_it
+            pose_src = pose_new
     metrics["loss"] = total.detach()
     return total, metrics
 
 
 def _train_on(state: TrainState, assets: RenderAssets, batch, cfg, schedule, mesh=None):
+    """Spans: ``train.backward``, ``train.optimizer`` (clip and update)."""
     state.optimizer.zero_grad(set_to_none=False)
     loss, metrics = compute_losses(state.model, assets, batch, cfg)
-    loss.backward()
+    with stage("train.backward"):
+        loss.backward()
     if mesh is not None:
         mean_gradients(state.model, mesh)
         metrics = mean_metrics(metrics, mesh)
-    metrics["grad_norm"] = apply_gradients(state, cfg, schedule, mesh)
+    with stage("train.optimizer"):
+        metrics["grad_norm"] = apply_gradients(state, cfg, schedule, mesh)
     return state, metrics
 
 
@@ -287,7 +296,8 @@ def make_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg, mesh=None):
     def step(state: TrainState, batch: dict[str, torch.Tensor]):
         if state.model is not model:
             raise ValueError("the step was built for another model")
-        return _train_on(state, assets, batch, cfg, schedule, mesh)
+        with stage("train.step"):
+            return _train_on(state, assets, batch, cfg, schedule, mesh)
 
     return step
 
@@ -334,12 +344,14 @@ def make_synthetic_train_step(model: DeepIMFlowNet, assets: RenderAssets, cfg,
     def step(state: TrainState, generator: torch.Generator):
         if state.model is not model:
             raise ValueError("the step was built for another model")
-        if n_data > 1:
-            generator = rank_generator(generator, mesh.data_index)
-        batch = gen(generator, assets, local_bs, k_cam, image_size,
-                    rot_noise_deg=t.rot_noise_deg, rot_max_deg=t.rot_noise_max_deg,
-                    trans_noise=t.trans_noise, trans_max=t.trans_noise_max)
-        batch.pop("visible_frac", None)
-        return _train_on(state, assets, batch, cfg, schedule, mesh)
+        with stage("train.step"):
+            with stage("train.synthesis"):
+                if n_data > 1:
+                    generator = rank_generator(generator, mesh.data_index)
+                batch = gen(generator, assets, local_bs, k_cam, image_size,
+                            rot_noise_deg=t.rot_noise_deg, rot_max_deg=t.rot_noise_max_deg,
+                            trans_noise=t.trans_noise, trans_max=t.trans_noise_max)
+                batch.pop("visible_frac", None)
+            return _train_on(state, assets, batch, cfg, schedule, mesh)
 
     return step

@@ -14,4 +14,4 @@ from deepim_tpu_torch.utils.viz import (
     side_by_side,
 )
 from deepim_tpu_torch.utils.logging import MetricsLogger, PrintAndLog, mkdir_if_missing
-from deepim_tpu_torch.utils.profiling import Speedometer, StageTimer, stage, trace
+from deepim_tpu_torch.utils.profiling import clear_spans, dropped_spans, spans, stage, trace

@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from deepim_tpu_torch.data.png import write_png
-
 
 def flow_to_rgb(flow: np.ndarray, max_mag: float | None = None) -> np.ndarray:
     """Optical flow (H, W, 2) -> Middlebury-style colour-wheel uint8 image:
@@ -67,4 +65,6 @@ def side_by_side(*images: np.ndarray, pad: int = 4) -> np.ndarray:
 
 def save_image(path: str, image: np.ndarray) -> None:
     """Write a uint8 RGB (H, W, 3) or grey (H, W) image as PNG."""
+    from deepim_tpu_torch.data.png import write_png  # data imports the raster, which imports utils
+
     write_png(path, np.asarray(image))
