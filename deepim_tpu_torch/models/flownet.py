@@ -11,8 +11,10 @@ and ``normalize_depth``; and int8 inference (``quant="int8"``): the
 quantize helpers, :func:`int8_conv` and :func:`int8_linear` for the
 encoder and fc1/fc2, dynamic or calibrated static activation scales
 (``act_scales``, see ``models/quant.py``) and the calibration recorder.
-The space-to-depth stem and the fast deconvolution (TPU layouts of the
-same parameters, off by default in the reference) are not ported.
+conv1 always runs as the reference's space-to-depth stem (``StemConv``,
+off by default there), its input channels padded to 8 (``_conv1``); the
+fast deconvolution (a TPU layout of the same parameters, off by default in
+the reference) is not ported.
 
 int8 follows the reference's ``Conv``/``QDense`` int8 branches number for
 number: symmetric scales (zero point 0), activations per sample or
@@ -62,6 +64,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepim_tpu_torch.geometry.rotations import euler2quat, quat_normalize
+from deepim_tpu_torch.utils.profiling import stage
 
 # Flax's lecun_normal draws a normal truncated at 2 std, rescaled by this
 # factor so the variance stays 1 / fan_in.
@@ -80,6 +83,9 @@ ENCODER = (
 SKIPS = {5: "conv5_1", 4: "conv4_1", 3: "conv3_1", 2: "conv2"}
 DECODER = ((5, 512), (4, 256), (3, 128), (2, 64))
 FLOW_LEVELS = (6, 5, 4, 3, 2)
+#: conv1's input channels are rounded up to a multiple of this (8 bf16
+#: values, 16 bytes) before its space-to-depth fold (``_conv1``).
+CONV1_CHANNELS = 8
 
 
 def same_pad(n: int, k: int, s: int) -> tuple[int, int]:
@@ -443,6 +449,49 @@ class DeepIMFlowNet(nn.Module):
     def _conv(self, name: str, x: torch.Tensor, sym: bool = False) -> torch.Tensor:
         return leaky(self._same(getattr(self, name), x, sym))
 
+    def _conv1(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 + leaky on the NHWC input ``x`` -> NCHW (channels-last
+        strides), in the compute type.
+
+        On the network's 6 (or 10) input channels cuDNN falls back to a
+        CUDA-core engine; on 8 it takes an Ampere-style tensor-core kernel;
+        on the 32 channels of the folded input below it runs its Hopper
+        implicit GEMM, about 3x faster again (H100, bf16, B=128).  So conv1
+        runs as the exact space-to-depth rewrite of the reference's
+        ``StemConv``: the padded input, its channels zero-extended to a
+        multiple of :data:`CONV1_CHANNELS`, folded by 2 into 4x the
+        channels, against the 7x7 kernel zero-extended to 8x8 and folded
+        alike, a 4x4 stride-1 conv.  One zeroed buffer and four strided
+        writes (one a row and column parity) do the cast, the border, the
+        zero channels and the fold; a padded extent is rounded up to even,
+        which adds no output.  The weight is rebuilt per call from the
+        parameter, which keeps its shape, so its gradient is the real
+        taps'.  The added products are exact zeros."""
+        conv = self.conv1
+        cout, cin, k, _ = conv.weight.shape
+        cp, kb = _ceil_to(cin, CONV1_CHANNELS), -(-k // 2)
+        b, h, w = x.shape[:3]
+        if self.mxnet_pad:
+            (ht, hb) = (wl, wr) = (k // 2, k // 2)
+        else:
+            (ht, hb), (wl, wr) = same_pad(h, k, 2), same_pad(w, k, 2)
+        h2, w2 = -(-(h + ht + hb) // 2), -(-(w + wl + wr) // 2)
+        with stage("network.conv1", cin=cin, cin_padded=cp):
+            xs = x.new_zeros((b, h2, w2, 2, 2, cp), dtype=self.dtype)
+            for p in (0, 1):  # padded row y + ht = 2 * i + p
+                for q in (0, 1):
+                    y0, x0 = (p - ht) % 2, (q - wl) % 2
+                    part = x[:, y0::2, x0::2]
+                    i0, j0 = (y0 + ht) // 2, (x0 + wl) // 2
+                    xs[:, i0:i0 + part.shape[1], j0:j0 + part.shape[2], p, q, :cin] = part
+            weight = F.pad(conv.weight.to(self.dtype),
+                           (0, 2 * kb - k, 0, 2 * kb - k, 0, cp - cin))
+            weight = (weight.reshape(cout, cp, kb, 2, kb, 2).permute(0, 3, 5, 1, 2, 4)
+                      .reshape(cout, 4 * cp, kb, kb))
+            y = F.conv2d(xs.view(b, h2, w2, 4 * cp).permute(0, 3, 1, 2), weight,
+                         conv.bias.to(self.dtype))
+            return leaky(y)
+
     def _up(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """A 4x4/s2 transposed conv with flax's SAME (output 2n)."""
         conv = getattr(self, name)
@@ -539,13 +588,13 @@ class DeepIMFlowNet(nn.Module):
     def forward(self, x: torch.Tensor, pose_only: bool = False) -> dict[str, torch.Tensor]:
         decode = (self.with_flow or self.with_mask) and not pose_only
         quant = self.quant == "int8"
-        c = x.to(self.dtype)
-        if not quant:
-            c = c.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        c = x.to(self.dtype) if quant else x
         skips = {}
         for name, *_ in ENCODER:
             if quant:  # NHWC throughout, the reference's layout
                 c = self._qconv(name, c, self.mxnet_pad)
+            elif name == "conv1":  # NHWC in, NCHW (channels-last strides) out
+                c = self._conv1(c)
             else:
                 c = self._conv(name, c, self.mxnet_pad)
             if decode and name in SKIPS.values():

@@ -109,14 +109,17 @@ def stage_times(model, ab, obs, pose, ks, cls, size, reps):
 
 
 def layer_times(model, x, reps):
-    """ms of each encoder conv on the network input ``x`` -> [(name, shape, ms)]."""
-    c = x.to(model.dtype).permute(0, 3, 1, 2)
+    """ms of each encoder conv on the network input ``x`` (conv1 as the
+    forward runs it, its folded operand built from ``x``) -> [(name, shape, ms)]."""
+    c = x.permute(0, 3, 1, 2)
     rows = []
     with torch.no_grad():
         for name, *_ in ENCODER:
+            conv = (lambda c: model._conv1(c.permute(0, 2, 3, 1))) if name == "conv1" else (
+                lambda c, name=name: model._conv(name, c))
             rows.append((name, "x".join(map(str, c.shape[1:])),
-                         event_ms(lambda c=c, name=name: model._conv(name, c), reps)))
-            c = model._conv(name, c)
+                         event_ms(lambda c=c, conv=conv: conv(c), reps)))
+            c = conv(c)
     return rows
 
 

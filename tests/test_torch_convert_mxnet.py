@@ -109,9 +109,10 @@ def test_conv_stride2_needs_mxnet_pad(name, k, cin):
 
 def test_conv1_on_the_network_input_honours_mxnet_pad():
     """The reference's stem case (its space-to-depth conv1 under
-    mxnet_pad; the port has no space-to-depth stem): the port's conv1 on a
-    6-channel input of even size, inside a model built with
-    mxnet_pad=True, against the MXNet oracle and the reference's StemConv."""
+    mxnet_pad): the port's conv1 as the forward runs it (channels padded
+    to 8, folded by space-to-depth) on a 6-channel input of even size,
+    inside a model built with mxnet_pad=True, against the MXNet oracle and
+    the reference's StemConv."""
     x = rng.randn(2, 6, 16, 20).astype(np.float32)
     w = rng.randn(64, 6, 7, 7).astype(np.float32)
     oracle = F.leaky_relu(mxnet_conv(x, w, 2, 3), 0.1)
@@ -119,7 +120,7 @@ def test_conv1_on_the_network_input_honours_mxnet_pad():
     m.conv1.weight.data.copy_(torch.from_numpy(w))
     m.conv1.bias.data.zero_()
     with torch.no_grad():
-        got = m._conv("conv1", torch.from_numpy(x), m.mxnet_pad)
+        got = m._conv1(torch.from_numpy(x).permute(0, 2, 3, 1))
     np.testing.assert_allclose(got.numpy(), oracle.numpy(), rtol=1e-5, atol=2e-5)
     stem = StemConv(64, 7, 2, jnp.float32, True)
     var = {"params": {"Conv_0": {"kernel": jnp.asarray(cm_j.conv_oihw_to_hwio(w)),

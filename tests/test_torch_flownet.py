@@ -30,14 +30,24 @@ def randomize_heads(params, seed=0, scale=1.0):
     return out
 
 
+def _torch_model(**kwargs):
+    """A torch network built with uniform draws inside flax's truncation in
+    place of truncated normals, twenty times cheaper: for a model whose
+    weights are loaded or do not matter (its initialisation is tested
+    below with the real draws)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.nn.init, "trunc_normal_",
+                   lambda p, std, a, b, generator: p.uniform_(a, b, generator=generator))
+        return fn_t.DeepIMFlowNet(**kwargs)
+
+
 def _models(input_size, head_grid=None, dtype=torch.float32):
     mj = fn_j.DeepIMFlowNet(num_classes=C, dtype=jnp.float32, with_flow=False,
                             with_mask=False, head_grid=head_grid)
     init_hw = head_grid and (head_grid[0] * 64, head_grid[1] * 64) or input_size
     var = mj.init(jax.random.PRNGKey(0), jnp.zeros((1, *init_hw, 6)))
     params = randomize_heads(jax.tree.map(np.asarray, var["params"]))
-    mt = fn_t.DeepIMFlowNet(num_classes=C, head_grid=head_grid,
-                            input_size=input_size, dtype=dtype)
+    mt = _torch_model(num_classes=C, head_grid=head_grid, input_size=input_size, dtype=dtype)
     mt.load_state_dict(flax_to_torch(params))
     return mj, {"params": params}, mt
 
@@ -185,8 +195,8 @@ def _decoder_models(input_size, pose_head="flatten", seed=0):
         lambda path, a: (a + 0.1 * rng.randn(*a.shape)).astype(np.float32)
         if path[-1].key == "bias" and a.ndim == 1 and "fc_" not in str(path[0]) else a,
         params)
-    mt = fn_t.DeepIMFlowNet(num_classes=C, head_grid=grid, dtype=torch.float32,
-                            with_flow=True, with_mask=True, pose_head=pose_head)
+    mt = _torch_model(num_classes=C, head_grid=grid, dtype=torch.float32,
+                      with_flow=True, with_mask=True, pose_head=pose_head)
     mt.load_state_dict(flax_to_torch(params))
     return mj, {"params": params}, mt
 
@@ -272,3 +282,95 @@ def test_decoder_init_and_pose_only_load():
         load_params(pose, dict(sd_full, mystery=torch.zeros(1)))
     with pytest.raises(RuntimeError):  # a missing key still fails
         load_params(full, sd_pose)
+
+
+# --- conv1: channels padded to a multiple of 8, folded by space-to-depth ----
+
+
+@pytest.fixture(scope="module")
+def conv1_net():
+    """A float32 network at a tiny size (38 even: SAME pads conv1 (2, 3);
+    53 odd: (3, 3)) whose pose heads are randomised, so conv1 gets a
+    gradient, the only one it computes."""
+    net = _torch_model(input_size=(38, 53), fc_dim=16, dtype=torch.float32)
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for head in (net.fc_rot, net.fc_trans):
+            head.weight.normal_(0.0, 0.1, generator=g)
+    for p in net.parameters():  # only conv1's gradient is compared
+        p.requires_grad_(p is net.conv1.weight)
+    return net
+
+
+def _net_input(cin, seed=5):
+    x = np.random.RandomState(seed).uniform(-0.5, 0.5, (2, 38, 53, cin))
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("mxnet_pad", [False, True])
+def test_conv1_padded_channels_match_unpadded_conv(conv1_net, mxnet_pad, monkeypatch):
+    # The network with conv1 on the 6-channel input zero-extended to 8 and
+    # folded by space-to-depth, its border built in, against F.pad of the 6
+    # channels and the 7x7 stride-2 F.conv2d: the pose outputs and conv1's
+    # weight gradient.  float32: the fold sums conv1's taps in another
+    # order (up to 6e-6 of scale measured over 8 inputs; float64 below).
+    net = conv1_net
+    monkeypatch.setattr(net, "mxnet_pad", mxnet_pad)
+    x = _net_input(6)
+
+    def run():
+        net.zero_grad(set_to_none=True)
+        out = net(x)
+        (out["rot_raw"].square().sum() + out["trans"].square().sum()).backward()
+        return out, net.conv1.weight.grad
+
+    out, grad = run()
+    monkeypatch.setattr(net, "_conv1", lambda c: net._conv(
+        "conv1", c.permute(0, 3, 1, 2), net.mxnet_pad))
+    ref, ref_grad = run()
+    for got, want, what in ((out["rot_raw"], ref["rot_raw"], "rot_raw"),
+                            (out["trans"], ref["trans"], "trans"),
+                            (grad, ref_grad, "conv1 gradient")):
+        scale = float(want.detach().abs().max())
+        assert scale > 1e-6, what  # the heads make every number matter
+        np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), rtol=0,
+                                   atol=2e-5 * scale, err_msg=what)
+    assert grad.shape == (64, 6, 7, 7)
+
+
+@pytest.mark.parametrize("mxnet_pad", [False, True])
+def test_conv1_fold_is_exact_in_float64(conv1_net, mxnet_pad, monkeypatch):
+    # conv1 alone in float64: its output and its weight gradient (under a
+    # random upstream gradient) against the unpadded 7x7 stride-2 conv.
+    net = conv1_net
+    monkeypatch.setattr(net, "mxnet_pad", mxnet_pad)
+    monkeypatch.setattr(net, "dtype", torch.float64)
+    x = _net_input(6)
+    y = net._conv1(x)
+    want = net._conv("conv1", x.double().permute(0, 3, 1, 2), mxnet_pad)
+    up = torch.from_numpy(np.random.RandomState(6).randn(*want.shape))
+    (grad,) = torch.autograd.grad((y * up).sum(), net.conv1.weight)
+    (want_grad,) = torch.autograd.grad((want * up).sum(), net.conv1.weight)
+    for got, ref, what in ((y, want, "conv1"), (grad, want_grad, "conv1 gradient")):
+        scale = float(ref.detach().abs().max())
+        assert got.shape == ref.shape and scale > 1e-3, what
+        np.testing.assert_allclose(got.detach().numpy(), ref.detach().numpy(), rtol=0,
+                                   atol=1e-6 * scale, err_msg=what)
+
+
+def test_conv1_weight_keeps_its_shape(conv1_net):
+    assert conv1_net.conv1.weight.shape == (64, 6, 7, 7)
+    assert conv1_net.state_dict()["conv1.weight"].shape == (64, 6, 7, 7)
+
+
+@pytest.mark.parametrize("cin,cin_padded", [(6, 8), (8, 8), (10, 16)])
+def test_conv1_span_reads_padded_channels(conv1_net, cin, cin_padded, monkeypatch):
+    # 6 (neither mask nor depth input), 8 (one of them), 10 (both).
+    from deepim_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(conv1_net, "conv1", torch.nn.Conv2d(cin, 64, 7, stride=2))
+    profiling.clear_spans()
+    with torch.no_grad(), torch.autograd.profiler.profile():
+        conv1_net(_net_input(cin), pose_only=True)
+    (span,) = [s for s in profiling.spans() if s.name == "network.conv1"]
+    assert dict(span.attrs) == {"cin": cin, "cin_padded": cin_padded}

@@ -1,5 +1,5 @@
 """deepim_tpu_torch.utils.profiling's spans and host-sync counter (CPU, and
-two cases on the card that skip without one).
+three cases on the card that skip without one).
 
 - Off (no profiler recording): ``stage`` hands back one shared no-op,
   records nothing, opens no ``record_function`` and allocates nothing.
@@ -11,7 +11,9 @@ two cases on the card that skip without one).
   trees of PERF.md §3, every ``render.*`` span under a ``render``.  A
   one-convolution stand-in for the network keeps them to a second.
 - On the card: a kernel's device interval lies inside the span that
-  launched and waited for it, and a planted ``int(t.max())`` counts 1.
+  launched and waited for it, a planted ``int(t.max())`` counts 1, and
+  the network's conv1, under its ``network.conv1`` span, launches no
+  kernel of cuDNN's generic CUDA-core engine.
 
 Nothing here imports JAX, so the card cases run on the card's machine:
 ``python -m pytest --noconftest tests/test_torch_spans.py -m card``.
@@ -342,3 +344,29 @@ def test_card_planted_sync_counts_one():
     got = {s.name: s.syncs for s in spans()}
     assert got == {"planted": 1, "root": 0}
     assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.card
+def test_card_conv1_takes_no_cuda_core_engine():
+    # conv1's 6 input channels, padded to 8 and folded inside
+    # network.conv1, leave cuDNN's generic CUDA-core NHWC engine.
+    from torch.autograd import DeviceType
+
+    from deepim_tpu_torch.models.flownet import DeepIMFlowNet
+
+    dev = _card()
+    net = DeepIMFlowNet(pose_head="gap", fc_dim=16).to(dev).eval()
+    x = torch.rand(4, 480, 640, 6, device=dev) - 0.5
+    with torch.no_grad():
+        net(x, pose_only=True)
+        torch.cuda.synchronize(dev)
+        clear_spans()
+        with _card_profile() as prof:
+            net(x, pose_only=True)
+            torch.cuda.synchronize(dev)
+    kernels = [e.name() for e in prof.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    assert kernels
+    assert [k for k in kernels if "convolve_common_engine" in k] == []
+    assert [dict(s.attrs) for s in spans() if s.name == "network.conv1"] == [
+        {"cin": 6, "cin_padded": 8}]
